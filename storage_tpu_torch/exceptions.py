@@ -1,0 +1,26 @@
+"""Exception taxonomy, mirroring the reference's (``Exceptions/``)."""
+
+
+class StorageError(Exception):
+    """Base class for storage_tpu_torch errors."""
+
+
+def not_ported(what: str, roadmap_item: str) -> NotImplementedError:
+    """The error for an option of the JAX package this port does not run yet,
+    naming the ROADMAP item that ports it."""
+    return NotImplementedError(
+        f"{what} is not ported to storage_tpu_torch yet (ROADMAP {roadmap_item})."
+    )
+
+
+class InventoryConstraintsCannotBeFulfilledError(StorageError):
+    """Inventory constraints admit no feasible path.
+
+    Reference: ``InventoryConstraintsCannotBeFulfilledException``
+    (``Exceptions/InventoryConstraintsCannotBeFulfilledException.cs``), thrown
+    by the inventory-space reduction when the forward and backward reachable
+    ranges have empty intersection (``StorageHelper.cs:101-102``).
+    """
+
+    def __init__(self, message: str = "Inventory constraints cannot be fulfilled."):
+        super().__init__(message)
