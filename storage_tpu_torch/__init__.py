@@ -1,12 +1,14 @@
 """storage_tpu_torch — commodity storage valuation in PyTorch with CUDA kernels.
 
 The PyTorch port of ``storage_tpu`` (the JAX package beside it, which stays
-the reference).  This slice runs the multi-factor LSMC main path —
-``three_factor_seasonal_value`` / ``multi_factor_value`` — end to end on one
-CUDA device: the host compile, the intrinsic DP, threefry path simulation
-(the same draws as the JAX package for the same seed), and the backward and
-forward LSMC passes through two hand-written CUDA kernels
-(``ops/csrc/``).  CPU tensors run the kernels' plain PyTorch versions.
+the reference).  It runs the multi-factor LSMC API —
+``three_factor_seasonal_value`` / ``multi_factor_value`` with per-sim
+panels, progress and cancellation (also through ``runtime.AsyncValuation``),
+extra decisions and any ratchet interpolation — end to end on one CUDA
+device: the host compile, the intrinsic DP, threefry path simulation (the
+same draws as the JAX package for the same seed), and the backward and
+forward LSMC passes through two hand-written CUDA kernels (``ops/csrc/``).
+CPU tensors run the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from .exceptions import InventoryConstraintsCannotBeFulfilledError, StorageError
 from .storage import CmdtyStorage
 from .types import InjectWithdrawRange, RatchetInterp, TriggerPricePoint, TriggerPriceProfile
 from .engines.intrinsic import IntrinsicValuationResults
+from .engines.lsmc import ValuationCancelledError
 from .models.multi_factor import create_3_factor_season_params
 from .ops import launch_counts, reset_launch_counts
 from .valuation import (
@@ -40,6 +43,7 @@ __all__ = [
     "create_3_factor_season_params",
     "InventoryConstraintsCannotBeFulfilledError",
     "StorageError",
+    "ValuationCancelledError",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -61,7 +61,7 @@ class ValuationContext:
     inv_space: InventorySpace  # arrays [n+1]
     grids: np.ndarray  # [n+1, G]
     num_grid_points: int
-    pillars: np.ndarray  # [n, P, 3]
+    pillars: np.ndarray  # [n, P, 3], or [n, P, 5] with POLY coefficients
     interp_kind: int
     inject_cost: np.ndarray  # [n]
     withdraw_cost: np.ndarray  # [n]

@@ -55,7 +55,7 @@ def _backward_values(ctx: ValuationContext, terminal_values: np.ndarray, extra_d
         return torch.tensor(np.asarray(a), dtype=torch.float32).to(device)
 
     grids, lo, hi, pillars = (t(ctx.grids), t(ctx.inv_space.min_inventory),
-                              t(ctx.inv_space.max_inventory), t(ctx.pillars[..., :3]))
+                              t(ctx.inv_space.max_inventory), t(ctx.pillars))
     loss, ic, wc, ci, cw, icr, dfs, df0, fwd = (t(a) for a in (
         ctx.inventory_loss, ctx.inject_cost, ctx.withdraw_cost, ctx.cons_inject,
         ctx.cons_withdraw, ctx.inventory_cost_rate, ctx.df_settle, ctx.df_cost, ctx.fwd))

@@ -16,7 +16,16 @@ Reference: ``LsmcStorageValuation.Calculate<T>``
 - The **forward pass** is one launch of the ``forward_sim`` CUDA kernel
   (:mod:`storage_tpu_torch.ops.forward`) over the whole horizon, re-applying
   the saved regression to the independent valuation path set; per-period
-  means, deltas and trigger prices come from its per-step sums.
+  means, deltas and trigger prices come from its per-step sums, and the
+  per-sim panels (``collect_panels``) are written by the kernel itself.
+- With a progress or cancellation hook both passes run span by span
+  (:func:`_chunk_bounds`, 20 spans): the value surface ``V`` is handed from
+  one backward span to the next (each span solves its latest period
+  directly, as the JAX package's chunked Pallas route does), the forward
+  kernel hands on each sim's inventory and the PVs add up.  After each span
+  the host waits for the device, checks the cancellation hook and reports
+  progress, weighted 0.66 backward / 0.34 forward (reference
+  ``LsmcStorageValuation.cs:46, 337-339, 488-490``).
 
 Deviations from the reference are those of the JAX package: fixed-count
 linspace grids, and the end-period terminal PV read from the valuation path
@@ -25,25 +34,41 @@ set (``LsmcStorageValuation.cs:567`` reads the regression sims).
 from __future__ import annotations
 
 import logging
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..compile import ValuationContext
-from ..exceptions import StorageError, not_ported
+from ..exceptions import StorageError
 from ..ops.backward import assemble_regression, backward_update
 from ..ops.forward import forward_sim, pack_scalars
 from ..ops.interp import fractional_index
-from ..ops.ratchets import INTERP_LINEAR, INTERP_STEP
 from ..ops.regression import (
     BasisSpec, design_matrix, fit_continuation, spot_from_factors, standardize_columns,
 )
 from .common import step_economics
 
 NUM_TRIGGER_VOLUMES = 10  # reference numTriggerPriceVolumes (LsmcStorageValuation.cs:367)
+BACKWARD_PCNT_TIME = 0.66  # reference progress weighting (LsmcStorageValuation.cs:46)
+NUM_PROGRESS_CHUNKS = 20  # spans of each pass when progress/cancellation hooks are given
 
 logger = logging.getLogger("storage_tpu_torch.lsmc")
+
+
+class ValuationCancelledError(StorageError):
+    """Raised when a cancellation callback requests a stop (reference:
+    ``CancellationToken.ThrowIfCancellationRequested``, :339, :490)."""
+
+
+PANEL_FIELDS = (
+    "inventory",  # pre-decision inventory per period
+    "inject_withdraw",
+    "cmdty_consumed",
+    "inventory_loss",
+    "net_volume",
+    "period_pv",
+)
 
 
 class LsmcArrays(NamedTuple):
@@ -53,6 +78,7 @@ class LsmcArrays(NamedTuple):
     backward_npv: torch.Tensor  # scalar — backward estimate, diagnostic
     deltas: torch.Tensor  # [n+1] (last entry 0)
     profile_means: torch.Tensor  # [n+1, 6] per-period sim-means of PANEL_FIELDS
+    panels: torch.Tensor  # [n+1, 6, S] per-sim panels ([n+1, 6, 0] when not collected)
     pv_by_sim: torch.Tensor  # [S]
     trigger_has_inject: torch.Tensor  # [n] bool
     trigger_has_withdraw: torch.Tensor  # [n] bool
@@ -68,7 +94,7 @@ class LsmcDeviceInputs(NamedTuple):
     grids: torch.Tensor  # [n+1, G]
     space_lo: torch.Tensor  # [n+1]
     space_hi: torch.Tensor  # [n+1]
-    pillars: torch.Tensor  # [n, P, 3]
+    pillars: torch.Tensor  # [n, P, 3], or [n, P, 5] with POLY coefficients
     loss: torch.Tensor  # [n]
     inject_cost: torch.Tensor
     withdraw_cost: torch.Tensor
@@ -89,7 +115,7 @@ def device_inputs(ctx: ValuationContext, device, dtype=torch.float32) -> LsmcDev
         grids=t(ctx.grids),
         space_lo=t(ctx.inv_space.min_inventory),
         space_hi=t(ctx.inv_space.max_inventory),
-        pillars=t(ctx.pillars[..., :3]),
+        pillars=t(ctx.pillars),
         loss=t(ctx.inventory_loss),
         inject_cost=t(ctx.inject_cost),
         withdraw_cost=t(ctx.withdraw_cost),
@@ -246,9 +272,14 @@ def _current_period_step(v_next, dev: LsmcDeviceInputs, interp_kind, num_grid_po
 
 def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
                       spec: BasisSpec, interp_kind: int, num_grid_points: int,
-                      extra_decisions: int, val_first: bool, terminal_fn):
+                      extra_decisions: int, val_first: bool, terminal_fn,
+                      spans: Optional[List[Tuple[int, int]]] = None,
+                      after_span: Optional[Callable[[float], None]] = None):
     """Backward induction over the regression path set ``[m+1, F, S]``.
 
+    ``spans`` (default: one span over all ``m`` decision steps) are walked
+    in reverse, each a :func:`backward_scan` handed the previous span's
+    value surface; ``after_span(progress)`` runs after each.
     Returns ``(backward_npv, cont_mean0 [G], coeffs [m,B,G], mus, sds, vbars)``.
     ``cont_mean0`` is the current-period mean continuation when ``val_first``
     (reference :171-181), else zeros (unused).
@@ -270,9 +301,16 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
         v = v_end.broadcast_to((S, G)).T.contiguous()
 
     if m:
-        geometry = _decision_geometry(dev, first, m, interp_kind, G, extra_decisions)
-        v, coeffs, mus, sds, vbars = backward_scan(
-            v, reg_factors[:m], sim_vols[:m], sim_drift[:m], geometry, spec)
+        spans = spans or [(0, m)]
+        parts = []
+        for i, (a, b) in enumerate(reversed(spans)):
+            geometry = _decision_geometry(dev, first + a, b - a, interp_kind, G, extra_decisions)
+            v, *policy = backward_scan(
+                v, reg_factors[a:b], sim_vols[a:b], sim_drift[a:b], geometry, spec)
+            parts.insert(0, policy)
+            if after_span is not None:
+                after_span(BACKWARD_PCNT_TIME * (i + 1) / len(spans))
+        coeffs, mus, sds, vbars = (torch.cat(x, dim=0) for x in zip(*parts))
     else:
         B = spec.num_basis
         coeffs = v.new_zeros((0, B, G))
@@ -432,47 +470,71 @@ def _stacked_outputs(sums, xsums, tables, dev: LsmcDeviceInputs, dfd, first: int
 def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, sds, vbars,
                      dev: LsmcDeviceInputs, backward_npv, spec: BasisSpec, interp_kind: int,
                      num_grid_points: int, extra_decisions: int, val_first: bool, terminal_fn,
-                     discount_deltas: bool) -> LsmcArrays:
-    """Forward pass through the ``forward_sim`` kernel, then result assembly
-    (structure of the JAX package's ``_forward_program_pallas``)."""
+                     discount_deltas: bool, collect_panels: bool = False,
+                     spans: Optional[List[Tuple[int, int]]] = None,
+                     after_span: Optional[Callable[[float], None]] = None) -> LsmcArrays:
+    """Forward pass through the ``forward_sim`` kernel, one launch per span
+    (default: one span over the horizon), then result assembly (structure of
+    the JAX package's ``_forward_program_pallas``).
+
+    With ``collect_panels`` the kernel writes each span's rows of one
+    ``[n+1, 6, S]`` buffer; the current-period row (every sim takes the same
+    decision there) and the end row are filled here.
+    """
     G = num_grid_points
     S = val_factors.shape[-1]
     m = val_factors.shape[0] - 1
     first = 1 if val_first else 0
     n = m + first
     dfd = dev.df_settle if discount_deltas else torch.ones_like(dev.df_settle)
+    panels = val_factors.new_empty((n + 1, 6, S if collect_panels else 0))
 
     if val_first:
         inv0, pv0, outputs0 = _step0_single_sim(cont_mean0, dev, dfd[0], interp_kind, G,
                                                  extra_decisions)
+        if collect_panels:
+            panels[0] = outputs0[0][0, :, None]  # the single sim's fields, for every sim
     else:
         inv0, pv0, outputs0 = dev.inventory, dev.inventory.new_zeros(()), None
 
     tables = torch.cat([coeffs, vbars[:, None, :]], dim=1).contiguous()  # [m, B+1, G]
+    mus, sds = mus.contiguous(), sds.contiguous()
+    pillars = dev.pillars[first:n].contiguous()
     scalars = pack_scalars(
         dev.space_lo[first + 1:n + 1], dev.space_hi[first + 1:n + 1], dev.loss[first:n],
         dev.inject_cost[first:n], dev.withdraw_cost[first:n], dev.cons_inject[first:n],
         dev.cons_withdraw[first:n], dev.inv_cost_rate[first:n], dev.df_settle[first:n],
         dev.df_start[first:n], sim_drift[:m], sim_vols[:m],
     )
-    sums, xsums, inv_final, pv_final = forward_sim(
-        val_factors[:m], inv0.reshape(1).expand(S).contiguous(), tables, mus.contiguous(),
-        sds.contiguous(), dev.pillars[first:n].contiguous(), scalars, spec=spec,
-        interp_kind=interp_kind, num_grid=G,
-    )
-    pv_by_sim = pv_final + pv0
-    _check_forward_health(pv_by_sim, inv_final, backward_npv)
-    stacked = _stacked_outputs(sums, xsums, tables, dev, dfd, first, n, S, interp_kind, G,
-                               extra_decisions)
+    spans = spans or [(0, m)]
+    inv = inv0.reshape(1).expand(S).contiguous()
+    pv_total = torch.zeros_like(inv)
+    sums_parts, xsums_parts = [], []
+    for i, (a, b) in enumerate(spans):
+        sums, xsums, inv, pv = forward_sim(
+            val_factors[a:b], inv, tables[a:b], mus[a:b], sds[a:b], pillars[a:b],
+            scalars[a:b], spec=spec, interp_kind=interp_kind, num_grid=G,
+            extra_decisions=extra_decisions,
+            panels=panels[first + a:first + b] if collect_panels else None,
+        )
+        pv_total = pv_total + pv
+        sums_parts.append(sums)
+        xsums_parts.append(xsums)
+        if after_span is not None:
+            after_span(BACKWARD_PCNT_TIME + (1.0 - BACKWARD_PCNT_TIME) * (i + 1) / len(spans))
+    pv_by_sim = pv_total + pv0
+    _check_forward_health(pv_by_sim, inv, backward_npv)
+    stacked = _stacked_outputs(torch.cat(sums_parts), torch.cat(xsums_parts), tables, dev, dfd,
+                               first, n, S, interp_kind, G, extra_decisions)
     if val_first:
         stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(outputs0, stacked))
     end_spots = spot_from_factors(val_factors[-1], sim_vols[-1], sim_drift[-1])
-    return _assemble_arrays(stacked, inv_final, pv_by_sim, end_spots, terminal_fn,
-                            backward_npv)
+    return _assemble_arrays(stacked, inv, pv_by_sim, end_spots, terminal_fn, backward_npv,
+                            panels)
 
 
 def _assemble_arrays(stacked, inv_final, pv_by_sim, end_spots, terminal_fn,
-                     backward_npv) -> LsmcArrays:
+                     backward_npv, panels) -> LsmcArrays:
     (means_rows, deltas_rows, has_inj, inj_vols, inj_prices,
      has_wdr, wdr_vols, wdr_prices) = stacked
     S = inv_final.shape[0]
@@ -488,11 +550,16 @@ def _assemble_arrays(stacked, inv_final, pv_by_sim, end_spots, terminal_fn,
 
     zero = inv_final.new_zeros(())
     end_means = torch.stack([inv_final.mean(), zero, zero, zero, zero, terminal_pv.mean()])
+    if panels.shape[-1]:
+        panels[-1] = 0.0
+        panels[-1, 0] = inv_final
+        panels[-1, 5] = terminal_pv
     return LsmcArrays(
         npv=pv_by_sim.mean(),
         backward_npv=backward_npv,
         deltas=torch.cat([deltas_rows, deltas_rows.new_zeros((1,))]),
         profile_means=torch.cat([means_rows, end_means[None]], dim=0),
+        panels=panels,
         pv_by_sim=pv_by_sim,
         trigger_has_inject=has_inj,
         trigger_has_withdraw=has_wdr,
@@ -557,6 +624,32 @@ def _check_forward_health(pv, inv_final, backward_npv) -> None:
         )
 
 
+def _chunk_bounds(n: int, num_chunks: int) -> List[Tuple[int, int]]:
+    """Split range(n) into at most num_chunks contiguous spans (for progress
+    reporting between kernel spans)."""
+    num_chunks = max(1, min(num_chunks, n))
+    edges = np.linspace(0, n, num_chunks + 1).astype(int)
+    return [(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:]) if b > a]
+
+
+def _span_hook(device, on_progress_update, cancelled) -> Callable[[float], None]:
+    """The host's turn after each span: wait for the span's kernels (so that
+    progress means work done and a cancel lands at once), check the
+    cancellation hook, report progress."""
+
+    def after_span(frac: float) -> None:
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            done.synchronize()
+        if cancelled is not None and cancelled():
+            raise ValuationCancelledError("Storage valuation was cancelled.")
+        if on_progress_update is not None:
+            on_progress_update(frac)
+
+    return after_span
+
+
 def run_lsmc(
     ctx: ValuationContext,
     reg_sims,  # callable () -> factors [m+1, F, S], or the tensor itself
@@ -576,19 +669,13 @@ def run_lsmc(
 
     ``reg_sims``/``val_sims`` are factories so the regression path set can be
     freed before the valuation set is simulated — at production path counts
-    each set is GBs of device memory.  Options of the JAX engine that this
-    route does not run raise ``NotImplementedError``.
+    each set is GBs of device memory.  With ``on_progress_update`` or
+    ``cancelled`` both passes run in ``NUM_PROGRESS_CHUNKS`` spans with the
+    hooks between them (the JAX package's ``_run_lsmc_chunked``), and
+    progress ends at 1.0; a cancel raises :class:`ValuationCancelledError`.
     """
-    if collect_panels:
-        raise not_ported("Per-sim panels (collect_panels=True)", "Queue 1 item 7")
-    if extra_decisions:
-        raise not_ported("extra_decisions > 0", "Queue 1 item 4")
-    if on_progress_update is not None or cancelled is not None:
-        raise not_ported("Progress and cancellation callbacks (the chunked driver)",
-                          "Queue 1 item 6")
-    if ctx.interp_kind not in (INTERP_LINEAR, INTERP_STEP):
-        raise not_ported("POLY ratchet interpolation", "Queue 1 item 2")
     G = ctx.num_grid_points
+    device = torch.device("cpu" if device is None else device)
     dev = device_inputs(ctx, device)
     statics = dict(
         spec=spec, interp_kind=ctx.interp_kind, num_grid_points=G,
@@ -597,12 +684,16 @@ def run_lsmc(
     )
     sim_vols = torch.as_tensor(sim_vols, dtype=torch.float32).to(device).contiguous()
     sim_drift = torch.as_tensor(sim_drift, dtype=torch.float32).to(device).contiguous()
+    chunked = on_progress_update is not None or cancelled is not None
+    m = sim_vols.shape[0] - 1
+    spans = _chunk_bounds(m, NUM_PROGRESS_CHUNKS if chunked else 1)
+    after_span = _span_hook(device, on_progress_update, cancelled) if chunked else None
 
     reg_factors = reg_sims() if callable(reg_sims) else reg_sims
     if stopwatches is not None:
         stopwatches.start("BackwardInduction")
     backward_npv, cont_mean0, coeffs, mus, sds, vbars = _backward_program(
-        reg_factors, sim_vols, sim_drift, dev, **statics)
+        reg_factors, sim_vols, sim_drift, dev, spans=spans, after_span=after_span, **statics)
     _check_backward_health(coeffs, vbars, ctx.fwd)
     if stopwatches is not None:
         stopwatches.stop("BackwardInduction")
@@ -613,8 +704,11 @@ def run_lsmc(
         stopwatches.start("ForwardSimulation")
     arrays = _forward_program(
         val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, sds, vbars, dev,
-        backward_npv, discount_deltas=discount_deltas, **statics)
+        backward_npv, discount_deltas=discount_deltas, collect_panels=collect_panels,
+        spans=spans, after_span=after_span, **statics)
     if stopwatches is not None:
         stopwatches.synchronize()
         stopwatches.stop("ForwardSimulation")
+    if on_progress_update is not None:
+        on_progress_update(1.0)
     return arrays

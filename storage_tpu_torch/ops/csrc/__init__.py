@@ -101,7 +101,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.backward_update_launch.argtypes = [p] * 12 + [ll, i, i, i, i, p, p, i, p]
     lib.backward_update_launch.restype = i
-    lib.forward_sim_launch.argtypes = [p] * 11 + [ll, i, i, i, i, i, i, p, p, i, p]
+    lib.forward_sim_launch.argtypes = [p] * 13 + [ll, i, i, i, i, i, i, i, i, p, p, i, p]
     lib.forward_sim_launch.restype = i
     lib.storage_kernels_error_string.argtypes = [i]
     lib.storage_kernels_error_string.restype = ctypes.c_char_p

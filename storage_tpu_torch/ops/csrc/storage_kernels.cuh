@@ -3,12 +3,13 @@
 // Every function here is the float32 arithmetic of a torch function of the
 // package, statement for statement, so that a kernel and its plain PyTorch
 // version differ only by rounding (nvcc contracts a*b+c into FMA by default;
-// that, and expf, are the expected sources of last-bit differences):
+// that is the expected source of last-bit differences where a function does
+// not round each step explicitly with __fmul_rn / __fadd_rn):
 //
 //   spot_of                  engines/lsmc.py::spot_from_factors
 //   design_row               ops/regression.py::design_columns
 //   frac_index               ops/interp.py::fractional_index
-//   interp_rates             ops/ratchets.py::interp_rates (LINEAR / STEP)
+//   interp_rates             ops/ratchets.py::interp_rates (LINEAR / STEP / POLY)
 //   clipped_decision_bounds  ops/decisions.py::clipped_decision_bounds
 //
 // Index arithmetic over sims uses 64-bit offsets: at 1M paths x 341 steps x
@@ -26,6 +27,7 @@ constexpr int kWarp = 32;
 
 constexpr int kInterpLinear = 0;
 constexpr int kInterpStep = 1;
+constexpr int kInterpPoly = 2;
 
 // Monomial basis: column b = spot^spot_pow[b] * prod_f x_f^fac_pow[b][f].
 struct BasisDesc {
@@ -89,25 +91,41 @@ __device__ __forceinline__ void frac_index(float x, float lo, float hi, int num_
   *w = fminf(fmaxf(t - jf, 0.0f), 1.0f);
 }
 
-// Min/max rates at inventory inv from pillars [P][3] = (inventory, min, max).
-__device__ __forceinline__ void interp_rates(const float* pil, int num_pillars, int interp_kind,
-                                             float inv, float* min_rate, float* max_rate) {
+// Min/max rates at inventory inv from pillars [P][C] = (inventory, min, max
+// [, min_poly_coef, max_poly_coef]); C = 5 for POLY. POLY is Horner's rule
+// over the padded coefficient columns (highest power first, zero rows on
+// top). Every product and sum is rounded as torch rounds it (no FMA
+// contraction), so the rates are those of the plain version bit for bit.
+__device__ __forceinline__ void interp_rates(const float* pil, int num_pillars, int num_cols,
+                                             int interp_kind, float inv, float* min_rate,
+                                             float* max_rate) {
+  if (interp_kind == kInterpPoly) {
+    float mn = 0.0f, mx = 0.0f;
+    for (int p = 0; p < num_pillars; ++p) {
+      mn = __fadd_rn(__fmul_rn(mn, inv), pil[num_cols * p + 3]);
+      mx = __fadd_rn(__fmul_rn(mx, inv), pil[num_cols * p + 4]);
+    }
+    *min_rate = mn;
+    *max_rate = mx;
+    return;
+  }
   int idx = -1;
-  for (int p = 0; p < num_pillars; ++p) idx += (pil[3 * p] <= inv) ? 1 : 0;
+  for (int p = 0; p < num_pillars; ++p) idx += (pil[num_cols * p] <= inv) ? 1 : 0;
   if (interp_kind == kInterpStep) {
     idx = min(max(idx, 0), num_pillars - 1);
-    *min_rate = pil[3 * idx + 1];
-    *max_rate = pil[3 * idx + 2];
+    *min_rate = pil[num_cols * idx + 1];
+    *max_rate = pil[num_cols * idx + 2];
     return;
   }
   const int lo = min(max(idx, 0), max(num_pillars - 2, 0));
   const int hi = min(lo + 1, num_pillars - 1);
-  const float inv_lo = pil[3 * lo];
-  const float seg = pil[3 * hi] - inv_lo;
-  float w = seg > 0.0f ? (inv - inv_lo) / seg : 0.0f;
+  const float* p_lo = pil + num_cols * lo;
+  const float* p_hi = pil + num_cols * hi;
+  const float seg = p_hi[0] - p_lo[0];
+  float w = seg > 0.0f ? (inv - p_lo[0]) / seg : 0.0f;
   w = fminf(fmaxf(w, 0.0f), 1.0f);
-  *min_rate = pil[3 * lo + 1] + (pil[3 * hi + 1] - pil[3 * lo + 1]) * w;
-  *max_rate = pil[3 * lo + 2] + (pil[3 * hi + 2] - pil[3 * lo + 2]) * w;
+  *min_rate = __fadd_rn(p_lo[1], __fmul_rn(p_hi[1] - p_lo[1], w));
+  *max_rate = __fadd_rn(p_lo[2], __fmul_rn(p_hi[2] - p_lo[2], w));
 }
 
 // Feasible (withdraw, inject) rates clipped to the next step's inventory space.

@@ -12,7 +12,7 @@ decisions unchanged.
 - :func:`bang_bang_decision_set` — exact host-side NumPy version with the
   reference's variable-length output and error behaviour.
 - :func:`bang_bang_decisions_fixed` — fixed-width torch version used inside the
-  valuation engines.
+  valuation engines, with its slot weights from :func:`decision_weights`.
 - :func:`clipped_decision_bounds` — the clipping both share with the forward
   CUDA kernel (``csrc/storage_kernels.cuh::clipped_decision_bounds`` is the
   same arithmetic, statement for statement).
@@ -67,6 +67,22 @@ def clipped_decision_bounds(
     return yielded_withdraw, yielded_inject
 
 
+def decision_weights(extra_decisions: int) -> np.ndarray:
+    """The float64 slot weights of :func:`bang_bang_decisions_fixed`, ``[4, D]``
+    with ``D = 2*extra_decisions + 3``: rows 0/1 weigh (withdraw, inject)
+    when the clipped range spans zero, rows 2/3 otherwise.  The forward CUDA
+    kernel takes the same rows as float32."""
+    extra = int(extra_decisions)
+    if extra < 0:
+        raise ValueError("extra_decisions must be non-negative.")
+    side = np.linspace(0.0, 1.0, extra + 2)
+    zero_w_weight = 1.0 - np.concatenate([side[:-1], np.zeros(1), np.zeros(extra + 1)])
+    zero_w_weight[extra + 1:] = 0.0
+    zero_i_weight = np.concatenate([np.zeros(extra + 1), np.zeros(1), side[1:]])
+    nspan_frac = np.concatenate([np.linspace(0.0, 1.0, extra + 2), np.ones(extra + 1)])
+    return np.stack([zero_w_weight, zero_i_weight, 1.0 - nspan_frac, nspan_frac])
+
+
 def bang_bang_decisions_fixed(
     min_rate,
     max_rate,
@@ -86,9 +102,7 @@ def bang_bang_decisions_fixed(
 
     All inputs broadcast; the decision axis is appended last.
     """
-    extra = int(extra_decisions)
-    if extra < 0:
-        raise ValueError("extra_decisions must be non-negative.")
+    weights = decision_weights(extra_decisions)
     yw, yi = clipped_decision_bounds(
         min_rate, max_rate, inventory, inventory_loss,
         next_step_min_inventory, next_step_max_inventory,
@@ -98,19 +112,12 @@ def bang_bang_decisions_fixed(
 
     # Per-slot weights, the same float64 host constants as the reference
     # build, applied in the working dtype.
-    side = np.linspace(0.0, 1.0, extra + 2)
-    zero_w_weight = 1.0 - np.concatenate([side[:-1], np.zeros(1), np.zeros(extra + 1)])
-    zero_w_weight[extra + 1:] = 0.0
-    zero_i_weight = np.concatenate([np.zeros(extra + 1), np.zeros(1), side[1:]])
-    nspan_frac = np.concatenate([np.linspace(0.0, 1.0, extra + 2), np.ones(extra + 1)])
-
-    def const(a):
-        return torch.as_tensor(a, dtype=yw.dtype, device=yw.device)
-
+    zero_w, zero_i, nspan_w, nspan_i = (
+        torch.as_tensor(a, dtype=yw.dtype, device=yw.device) for a in weights)
     yw_e = yw[..., None]
     yi_e = yi[..., None]
-    zero_set = yw_e * const(zero_w_weight) + yi_e * const(zero_i_weight)
-    nspan_set = yw_e * const(1.0 - nspan_frac) + yi_e * const(nspan_frac)
+    zero_set = yw_e * zero_w + yi_e * zero_i
+    nspan_set = yw_e * nspan_w + yi_e * nspan_i
     return torch.where(has_zero[..., None], zero_set, nspan_set)
 
 

@@ -1,22 +1,24 @@
-"""The LSMC forward pass over the whole horizon (CUDA kernel) and its plain
+"""The LSMC forward pass over a span of steps (CUDA kernel) and its plain
 PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas_forward.py``.  The kernel
 (``csrc/forward_sim.cu``) replaces ``_forward_kernel`` there and computes
 the XLA math of ``_forward_step_core`` (``engines/lsmc.py``) with the
-regression continuation, in float32 with exact two-point interpolation.
+regression continuation, in float32 with exact two-point interpolation,
+for any ``extra_decisions`` and ratchet interpolation (LINEAR, STEP, POLY).
 Outputs are the per-step sums the engine needs for means, deltas and
-trigger prices, plus each sim's final inventory and PV — never a per-sim
-panel.
+trigger prices, plus each sim's final inventory and PV; given a ``panels``
+tensor ``[n, 6, S]`` it also writes the per-sim panel fields into it (the
+engine passes a view into its ``[n+1, 6, S]`` result, so no copy is made).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import count_launch
-from .decisions import clipped_decision_bounds
+from .decisions import bang_bang_decisions_fixed, decision_weights
 from .interp import fractional_index
 from .ratchets import interp_rates
 from .regression import BasisSpec, design_columns, spot_from_factors
@@ -45,11 +47,13 @@ def forward_sim_reference(
     tables: torch.Tensor,  # [n, B+1, G] coefficient tables incl. the vbar row
     mus: torch.Tensor,  # [n, B]
     sds: torch.Tensor,  # [n, B]
-    pillars: torch.Tensor,  # [n, P, 3]
+    pillars: torch.Tensor,  # [n, P, 3], or [n, P, 5] for POLY
     scalars: torch.Tensor,  # [n, 11 + F]
     spec: BasisSpec,
     interp_kind: int,
     num_grid: int,
+    extra_decisions: int = 0,
+    panels: Optional[torch.Tensor] = None,  # [n, 6, S], written when given
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: a loop over steps, vectorised over
     sims.  Returns ``(sums [n, 7], xsums [n, B+1], inv_final [S], pv_final [S])``."""
@@ -68,15 +72,16 @@ def forward_sim_reference(
         min_rate, max_rate = interp_rates(pillars[k], inv, interp_kind)
         lo, hi = sc[SC_LO], sc[SC_HI]
         loss_amt = sc[SC_LOSS] * inv
-        yw, yi = clipped_decision_bounds(min_rate, max_rate, inv, loss_amt, lo, hi)
-        has_zero = (yw < 0.0) & (yi > 0.0)
-        decisions = (yw, torch.where(has_zero, torch.zeros_like(yi), yi), yi)
+        decisions = bang_bang_decisions_fixed(min_rate, max_rate, inv, loss_amt, lo, hi,
+                                              extra_decisions)  # [S, D]
         tbl = tables[k].T  # [G, B+1]
         best = None
-        for d in decisions:
+        for d in decisions.unbind(dim=1):
             j, w = fractional_index((inv + d) - loss_amt, lo, hi, num_grid)
             eff = tbl[j] * (1.0 - w)[:, None] + tbl[j + 1] * w[:, None]  # [S, B+1]
-            cont = (xn1.T * eff).sum(dim=1)
+            cont = torch.zeros_like(d)
+            for b in range(B + 1):  # sequential, in the kernel's order
+                cont = cont + xn1[b] * eff[:, b]
             inject = d > 0.0
             abs_d = d.abs()
             consumed = torch.where(inject, sc[SC_CI] * abs_d, sc[SC_CW] * abs_d)
@@ -91,6 +96,8 @@ def forward_sim_reference(
                 best = [torch.where(better, a, b) for a, b in zip((total, d, consumed, imm), best)]
         _, vol, consumed, imm = best
         net = -vol - consumed
+        if panels is not None:
+            panels[k] = torch.stack([inv, vol, consumed, loss_amt, net, imm])
         sums.append(torch.stack([x.sum() for x in (inv, vol, consumed, loss_amt, net, imm,
                                                    net * spot)]))
         xsums.append(xn1.sum(dim=1))
@@ -100,22 +107,27 @@ def forward_sim_reference(
 
 
 def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: BasisSpec,
-                      interp_kind: int, num_grid: int):
+                      interp_kind: int, num_grid: int, extra_decisions: int = 0,
+                      panels: Optional[torch.Tensor] = None):
     """Launch ``forward_sim_kernel`` (CUDA tensors only)."""
     from .csrc import basis_arrays, check_launch, check_operand, kernels
 
     n, F, S = factors.shape
     B = spec.num_basis
     G = num_grid
-    P = pillars.shape[1]
-    for name, t, shape in (
+    P, C = pillars.shape[1:]
+    operands = [
         ("factors", factors, (n, F, S)), ("inv0", inv0, (S,)), ("tables", tables, (n, B + 1, G)),
-        ("mus", mus, (n, B)), ("sds", sds, (n, B)), ("pillars", pillars, (n, P, 3)),
+        ("mus", mus, (n, B)), ("sds", sds, (n, B)), ("pillars", pillars, (n, P, C)),
         ("scalars", scalars, (n, NUM_FIXED_SCALARS + F)),
-    ):
+    ]
+    if panels is not None:
+        operands.append(("panels", panels, (n, 6, S)))
+    for name, t, shape in operands:
         check_operand(name, t, shape)
     lib = kernels()
     dev = factors.device
+    weights = torch.tensor(decision_weights(extra_decisions), dtype=torch.float32, device=dev)
     tables_gb = tables.transpose(1, 2).contiguous()  # [n, G, B+1]: row j contiguous
     nblk = -(-S // FORWARD_BLOCK_SIMS)
     sums_part = torch.empty((nblk, n, NUM_SUMS), dtype=torch.float32, device=dev)
@@ -125,10 +137,11 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
     spot_pow, fac_pow = basis_arrays(spec)
     err = lib.forward_sim_launch(
         factors.data_ptr(), inv0.data_ptr(), tables_gb.data_ptr(), mus.data_ptr(),
-        sds.data_ptr(), pillars.data_ptr(), scalars.data_ptr(), sums_part.data_ptr(),
-        xsums_part.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
-        S, n, G, P, int(interp_kind), B, F, spot_pow, fac_pow, FORWARD_BLOCK_SIMS,
-        torch.cuda.current_stream(dev).cuda_stream,
+        sds.data_ptr(), pillars.data_ptr(), scalars.data_ptr(), weights.data_ptr(),
+        sums_part.data_ptr(), xsums_part.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
+        None if panels is None else panels.data_ptr(),
+        S, n, G, P, C, int(interp_kind), weights.shape[1], B, F, spot_pow, fac_pow,
+        FORWARD_BLOCK_SIMS, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch("forward_sim", err)
     count_launch("forward_sim")
@@ -136,13 +149,13 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
 
 
 def forward_sim(factors, inv0, tables, mus, sds, pillars, scalars, spec: BasisSpec,
-                interp_kind: int, num_grid: int):
-    """The forward pass: ``(sums [n, 7], xsums [n, B+1], inv_final [S], pv_final [S])``.
+                interp_kind: int, num_grid: int, extra_decisions: int = 0,
+                panels: Optional[torch.Tensor] = None):
+    """The forward pass: ``(sums [n, 7], xsums [n, B+1], inv_final [S], pv_final [S])``,
+    writing the per-sim panel fields into ``panels [n, 6, S]`` when given.
 
     CUDA tensors go to the kernel; CPU tensors to :func:`forward_sim_reference`.
     """
-    if factors.device.type == "cpu":
-        return forward_sim_reference(factors, inv0, tables, mus, sds, pillars, scalars, spec,
-                                     interp_kind, num_grid)
-    return _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec,
-                             interp_kind, num_grid)
+    impl = forward_sim_reference if factors.device.type == "cpu" else _forward_sim_cuda
+    return impl(factors, inv0, tables, mus, sds, pillars, scalars, spec, interp_kind, num_grid,
+                extra_decisions, panels)

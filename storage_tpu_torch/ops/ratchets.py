@@ -4,7 +4,8 @@ The reference dispatches on constraint class per period
 (``ConstantInjectWithdrawConstraint`` / ``PiecewiseLinearInjectWithdrawConstraint`` /
 ``StepInjectWithdrawConstraint``; ``InjectWithdrawConstraints/*.cs``).  The
 engines use a single dense pillar tensor ``[num_steps, P, 3]`` of
-``(inventory, min_rate, max_rate)`` rows, padded by repeating the final pillar,
+``(inventory, min_rate, max_rate)`` rows, padded by repeating the final pillar
+(``[num_steps, P, 5]`` with the exact-fit polynomial coefficients for POLY),
 plus one interpolation mode for the whole storage.  Rate lookup is then a
 branch-free gather/interp over any batch of inventories.
 
@@ -16,8 +17,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..exceptions import not_ported
-
 INTERP_LINEAR = 0  # piecewise-linear in inventory (reference PiecewiseLinear)
 INTERP_STEP = 1  # piecewise-constant, floor lookup (reference Step)
 INTERP_POLY = 2  # exact-fit polynomial (reference PolynomialInjectWithdrawConstraint)
@@ -27,23 +26,31 @@ def interp_rates(pillars: torch.Tensor, inventory: torch.Tensor, interp_kind: in
     """Min/max inject-withdraw rates at ``inventory``.
 
     Args:
-      pillars: ``[*batch, P, 3]`` tensor of (inventory, min_rate, max_rate)
-        rows, sorted ascending by inventory and padded by repeating the last
-        row.  The batch dimensions (periods, say) lead ``inventory``'s.
+      pillars: ``[*batch, P, C]`` tensor of (inventory, min_rate, max_rate
+        [, min_poly_coef, max_poly_coef]) rows, sorted ascending by inventory
+        and padded as :func:`pad_pillars` pads them.  The batch dimensions
+        (periods, say) lead ``inventory``'s.
       inventory: tensor of shape ``[*batch, *query]``.
-      interp_kind: INTERP_LINEAR or INTERP_STEP.
+      interp_kind: INTERP_LINEAR, INTERP_STEP or INTERP_POLY (``C = 5``).
 
     Returns ``(min_rate, max_rate)`` with the shape of ``inventory``.
 
     Linear mode mirrors MathNet's ``LinearSpline`` over the pillar points
     (reference ``PiecewiseLinearInjectWithdrawConstraint.cs:67-72``); step mode
     mirrors the floor binary search (``StepInjectWithdrawConstraint.cs:72-79``).
-    Out-of-range inventories clamp to the boundary pillar.
+    Out-of-range inventories clamp to the boundary pillar.  Poly mode is
+    Horner's rule over columns 3/4 (highest power first, zero rows on top).
     """
-    if interp_kind == INTERP_POLY:
-        raise not_ported("POLY ratchet interpolation", "Queue 1 item 2")
     num_pillars = pillars.shape[-2]
     query_dims = inventory.dim() - (pillars.dim() - 2)
+    if interp_kind == INTERP_POLY:
+        coef_shape = pillars.shape[:-2] + (1,) * query_dims
+        min_rate = torch.zeros_like(inventory)
+        max_rate = torch.zeros_like(inventory)
+        for p in range(num_pillars):
+            min_rate = min_rate * inventory + pillars[..., p, 3].reshape(coef_shape)
+            max_rate = max_rate * inventory + pillars[..., p, 4].reshape(coef_shape)
+        return min_rate, max_rate
     shape = pillars.shape[:-2] + (1,) * query_dims + (num_pillars,)
     pillar_inv, pillar_min, pillar_max = (pillars[..., c].reshape(shape) for c in range(3))
 

@@ -3,10 +3,11 @@
 Mirrors ``multi_factor_value`` / ``three_factor_seasonal_value`` of the JAX
 package (reference ``cmdty_storage/multi_factor.py:302-496``): runs the
 intrinsic calculation first, then the LSMC engine on simulated paths, and
-returns NPV, per-period deltas, the expected storage profile, trigger prices
-and trigger volume/price profiles.  The device work runs on ``device``
-(default ``"cuda"``): the two LSMC kernels launch there.  Per-sim panels are
-not ported yet, so ``return_sim_panels`` must be ``False``.
+returns NPV, per-period deltas, the expected storage profile, trigger prices,
+trigger volume/price profiles and (``return_sim_panels``, the default) the
+per-sim panels.  The device work runs on ``device`` (default ``"cuda"``):
+the two LSMC kernels launch there.  ``on_progress_update``/``cancelled``
+run the engine span by span with the hooks between spans.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from .models.multi_factor import (
     create_3_factor_season_params,
     validate_multi_factor_params,
 )
-from .models.simulation import fold_in, prng_key, simulate_factor_paths
+from .models.simulation import fold_in, prng_key, simulate_factor_paths, spots_from_factor_paths
 from .ops.regression import basis_spec
 from .storage import CmdtyStorage
 from .types import TriggerPricePoint, TriggerPriceProfile
@@ -163,17 +164,9 @@ def multi_factor_value(
     )
 
 
-def _check_slice_options(extra_decisions, on_progress_update, cancelled, dtype, mesh,
-                         return_sim_panels) -> None:
+def _check_slice_options(dtype, mesh) -> None:
     """Options of the JAX API that this port does not run yet raise, naming
     the ROADMAP item that ports them."""
-    if return_sim_panels:
-        raise not_ported("return_sim_panels=True (per-sim panels); pass return_sim_panels=False",
-                      "Queue 1 item 7")
-    if extra_decisions:
-        raise not_ported("extra_decisions > 0", "Queue 1 item 4")
-    if on_progress_update is not None or cancelled is not None:
-        raise not_ported("on_progress_update / cancelled (the chunked driver)", "Queue 1 item 6")
     if mesh is not None:
         raise not_ported("mesh (multi-device paths)", "Queue 1 item 10")
     if dtype != torch.float32:
@@ -206,8 +199,7 @@ def _multi_factor_calc(
     profile_sink=None,
     device="cuda",
 ) -> MultiFactorValuationResults:
-    _check_slice_options(extra_decisions, on_progress_update, cancelled, dtype, mesh,
-                         return_sim_panels)
+    _check_slice_options(dtype, mesh)
     device = torch.device(device)
     freq = normalize_freq(cmdty_storage.freq)
     val_period = to_period(val_date, freq)
@@ -222,6 +214,8 @@ def _multi_factor_calc(
 
     # Edge cases (reference LsmcStorageValuation.cs:64-84).
     if val_period > cmdty_storage.end:
+        if on_progress_update is not None:
+            on_progress_update(1.0)
         return _empty_results(freq)
     if val_period == cmdty_storage.end:
         if cmdty_storage.must_be_empty_at_end:
@@ -229,9 +223,13 @@ def _multi_factor_calc(
                 raise InventoryConstraintsCannotBeFulfilledError(
                     "Storage must be empty at end, but inventory is greater than zero."
                 )
+            if on_progress_update is not None:
+                on_progress_update(1.0)
             return _empty_results(freq)
         spot = float(fwd_curve[val_period])
         npv = cmdty_storage.terminal_storage_npv(spot, float(inventory))
+        if on_progress_update is not None:
+            on_progress_update(1.0)
         return _empty_results(freq, npv=npv, intrinsic_npv=npv)
 
     ctx = build_valuation_context(
@@ -260,28 +258,40 @@ def _multi_factor_calc(
     val_key = fold_in(reg_key, 1) if fwd_sim_seed is None else prng_key(int(fwd_sim_seed))
 
     # Factories: the engine simulates each path set lazily so the regression
-    # set can be freed before the valuation set allocates.
-    def simulate(key, phase):
+    # set can be freed before the valuation set allocates.  With panels, each
+    # set's spot panel [m+1, S] is kept (on the device) as it is simulated.
+    sims_cache = {}
+    sim_vols = torch.as_tensor(coeffs.vols, dtype=torch.float32).to(device)
+    sim_drift = torch.as_tensor(coeffs.log_fwd_drift, dtype=torch.float32).to(device)
+
+    def simulate(key, phase, name):
         with stopwatches.time(phase):
             f = simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
                                       device=device)
             if stopwatches.sync:
                 stopwatches.synchronize()
+        if return_sim_panels:
+            sims_cache[name] = spots_from_factor_paths(f, sim_vols, sim_drift)
         return f
 
     logger.info("Calculating LSMC value.")
     arrays = run_lsmc(
         ctx,
-        lambda: simulate(reg_key, "RegressionPriceSimulation"),
-        lambda: simulate(val_key, "ValuationPriceSimulation"),
-        coeffs.vols, coeffs.log_fwd_drift, spec,
+        lambda: simulate(reg_key, "RegressionPriceSimulation", "reg"),
+        lambda: simulate(val_key, "ValuationPriceSimulation", "val"),
+        sim_vols, sim_drift, spec,
         discount_deltas=discount_deltas,
+        extra_decisions=int(extra_decisions or 0),
         device=device,
+        on_progress_update=on_progress_update,
+        cancelled=cancelled,
+        collect_panels=return_sim_panels,
         stopwatches=stopwatches,
     )
     logger.info("Calculation of LSMC value complete.")
 
-    results, backward_npv = _assemble_results(ctx, arrays, intrinsic, sim_periods)
+    results, backward_npv = _assemble_results(
+        ctx, arrays, intrinsic, sim_periods, sims_cache.get("reg"), sims_cache.get("val"))
     logger.info(
         "Forward Pv: %s; Backward Pv: %s",
         f"{results.npv:,.2f}",
@@ -294,13 +304,37 @@ def _multi_factor_calc(
     return results
 
 
+def _fetch_panel(panel: torch.Tensor, max_chunk_bytes: int = 256 * 2**20) -> np.ndarray:
+    """Device->host copy of one ``[rows, S]`` panel into a contiguous float64
+    host array, in blocks of rows of at most ``max_chunk_bytes``: each block
+    is widened to float64 on the device and lands in its final place with
+    one copy, so the host makes no second pass over the data (at 1M paths a
+    panel is 1.4 GB on the device and 2.7 GB on the host)."""
+    rows, S = panel.shape
+    out = np.empty((rows, S), dtype=np.float64)
+    host = torch.from_numpy(out)
+    step = max(1, max_chunk_bytes // max(S * out.itemsize, 1))
+    for a in range(0, rows, step):
+        host[a:a + step].copy_(panel[a:a + step].to(torch.float64))
+    return out
+
+
+def _panel_frame(panel: Optional[torch.Tensor], index) -> pd.DataFrame:
+    """The frame of one per-sim panel (sims as columns), built on its host
+    array without a copy; an empty frame when panels were not collected."""
+    if panel is None or not panel.shape[-1]:
+        return pd.DataFrame(index=index)
+    return pd.DataFrame(_fetch_panel(panel), index=index, copy=False)
+
+
 def _assemble_results(
-    ctx, arrays: LsmcArrays, intrinsic, sim_periods,
+    ctx, arrays: LsmcArrays, intrinsic, sim_periods, reg_spots_sim=None, val_spots_sim=None,
 ) -> MultiFactorValuationResults:
     periods = ctx.periods
     freq = ctx.freq
     sim_index = pd.PeriodIndex(sim_periods, freq=freq)
-    empty_panel = pd.DataFrame(index=periods)
+    # Per-sim panels [n+1, 6, S]: one contiguous host array per field.
+    panel_frames = [_panel_frame(arrays.panels[:, f], periods) for f in range(6)]
 
     # One device->host transfer for every small output.
     small = [
@@ -378,14 +412,14 @@ def _assemble_results(
         expected_profile=profile,
         intrinsic_npv=intrinsic.npv,
         intrinsic_profile=intrinsic.profile,
-        sim_spot_regress=pd.DataFrame(index=sim_index),
-        sim_spot_valuation=pd.DataFrame(index=sim_index),
-        sim_inventory=empty_panel,
-        sim_inject_withdraw=empty_panel,
-        sim_cmdty_consumed=empty_panel,
-        sim_inventory_loss=empty_panel,
-        sim_net_volume=empty_panel,
-        sim_pv=empty_panel,
+        sim_spot_regress=_panel_frame(reg_spots_sim, sim_index),
+        sim_spot_valuation=_panel_frame(val_spots_sim, sim_index),
+        sim_inventory=panel_frames[0],
+        sim_inject_withdraw=panel_frames[1],
+        sim_cmdty_consumed=panel_frames[2],
+        sim_inventory_loss=panel_frames[3],
+        sim_net_volume=panel_frames[4],
+        sim_pv=panel_frames[5],
         trigger_prices=trigger_prices,
         trigger_profiles=trigger_profiles,
     )

@@ -6,10 +6,15 @@ has no CPU mode).  Run them on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -q
 
 Random inputs at odd sizes exercise what the main path's shapes do not:
-ragged tail blocks, other basis and grid widths, STEP ratchets and
-single-pillar (constant-rate) tables.  Rounding differs between a kernel and
-its plain version (FMA contraction), so near-tie decisions may flip; flips
-are counted and bounded like ``chip_smoke.py`` bounds them.
+ragged tail blocks, other basis and grid widths, STEP ratchets,
+single-pillar (constant-rate) tables, and the forward kernel's options —
+per-sim panels, D = 7 decisions (``extra_decisions=2``) and POLY ratchets
+whose pillar tables are zero-padded to a common height.  Rounding differs
+between a kernel and its plain version (FMA contraction), so near-tie
+decisions may flip; flips are counted and bounded like ``chip_smoke.py``
+bounds them (<= 1e-4 of the paths per decision; panels and final
+inventories within 1e-5 of each field's max outside flipped paths, a path
+counting as flipped where its PV or any of its volumes differ).
 """
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ import torch
 from storage_tpu_torch import launch_counts, reset_launch_counts
 from storage_tpu_torch.ops import backward, forward
 from storage_tpu_torch.ops.csrc import KernelLaunchError
+from storage_tpu_torch.ops.ratchets import INTERP_POLY, pad_pillars
 from storage_tpu_torch.ops.regression import BasisSpec
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +113,48 @@ def test_forward_sim_matches_plain(cuda, P, interp_kind):
     assert flipped.float().mean().item() / n <= 1e-4
     ok = ~flipped
     assert torch.allclose(inv_k[ok], inv_r[ok], rtol=1e-4, atol=1e-3)
+    assert ((s_k - s_r).abs().max() / s_r.abs().max()).item() <= 1e-3
+
+
+def _poly_pillars(n):
+    """POLY pillar tables [n, 4, 5]: odd steps fit 4 pillars (a cubic), even
+    steps 3 (a quadratic, zero-padded to the cubic's height)."""
+    tables = []
+    for k in range(n):
+        inv = np.array([0.0, 2000.0, 5000.0, 7000.0][: 4 - (k + 1) % 2])
+        mn, mx = -150.0 - 0.02 * inv - 1e-6 * inv**2, 250.0 - 0.015 * inv + 1e-7 * inv**2
+        deg = len(inv) - 1
+        tables.append(np.column_stack([inv, mn, mx, np.polyfit(inv, mn, deg),
+                                       np.polyfit(inv, mx, deg)]))
+    return torch.tensor(pad_pillars(tables), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("S,extra,interp_kind", [(3001, 0, 0), (1000, 2, 0), (2048, 1, INTERP_POLY)],
+                         ids=["panels-ragged", "D7", "poly-padded"])
+def test_forward_sim_options_match_plain(cuda, S, extra, interp_kind):
+    n, G = 30, 23
+    args = _forward_inputs(SPEC_3F, S, n, G, 4, seed=S + extra, device=cuda)
+    if interp_kind == INTERP_POLY:
+        args[5] = _poly_pillars(n).to(cuda)
+    kw = dict(spec=SPEC_3F, interp_kind=interp_kind, num_grid=G, extra_decisions=extra)
+    panels_k = torch.full((n, 6, S), float("nan"), device=cuda)
+    panels_r = torch.empty_like(panels_k)
+    reset_launch_counts()
+    s_k, x_k, inv_k, pv_k = forward.forward_sim(*args, **kw, panels=panels_k)
+    assert launch_counts()["forward_sim"] == 1
+    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **kw, panels=panels_r)
+    torch.cuda.synchronize()
+    assert torch.isfinite(panels_k).all()
+    flipped = (pv_k - pv_r).abs() > 1e-4 * pv_r.abs().clamp_min(1e-6 * pv_r.abs().max().item())
+    vol_k, vol_r = panels_k[:, 1], panels_r[:, 1]
+    flipped |= ((vol_k - vol_r).abs() > 1e-5 * vol_r.abs().max()).any(dim=0)
+    assert flipped.float().mean().item() / n <= 1e-4
+    ok = ~flipped
+    for f in range(6):
+        a, b = panels_k[:, f, ok], panels_r[:, f, ok]
+        assert ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() <= 1e-5, f
+    assert ((inv_k[ok] - inv_r[ok]).abs().max() / inv_r.abs().max()).item() <= 1e-5
+    assert ((x_k - x_r).abs().max() / x_r.abs().max()).item() <= 1e-4
     assert ((s_k - s_r).abs().max() / s_r.abs().max()).item() <= 1e-3
 
 
