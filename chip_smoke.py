@@ -15,9 +15,15 @@ Phases, each printing its own line (every failure exits non-zero):
    the forward kernel launch.
 4. K1 / K2 — each kernel against its plain PyTorch version on the recorded
    inputs restricted to 65,536 sims, then both timed at the main path's
-   shapes (1M sims) with CUDA events; then the same for K1 at D = 5
-   (``extra_decisions=1`` geometry) and for K2's variants: per-sim panels,
-   D = 5, and POLY ratchets (cubics fitted through the recorded pillars).
+   shapes (1M sims) with CUDA events, beside the least time the card could
+   take (``bound_ms``, from the byte and operation counts of ``k1_bound`` and
+   ``k2_bound``); K1 with ``torch.matmul`` of its ``[B+1, S] x [S, G]``
+   partial product timed as a yardstick of the reduction alone; then the
+   same for K1
+   at D = 5 (``extra_decisions=1`` geometry), K1 at G = 700, D = 5 on random
+   inputs (a grid the PR-1 kernel refused), and K2's variants: per-sim
+   panels, D = 5, and POLY ratchets (cubics fitted through the recorded
+   pillars).
 5. main    — launch counts reset, the valuation timed once more; the counts
    must show both kernels ran, and NPV and intrinsic value must match the
    JAX reference's record for this case and seed.
@@ -70,6 +76,11 @@ V_TOL, FLIP_FRAC_MAX, PARTIALS_RTOL, FWD_NPV_RTOL = 1e-5, 1e-3, 1e-4, 1e-5
 PANEL_RTOL, ASYNC_NPV_RTOL, PROFILE_RTOL, SIM_PV_RTOL = 1e-5, 1e-4, 1e-4, 1e-5
 NUM_SPANS, BACKWARD_SHARE = 20, 0.66  # the chunked driver's spans and progress weighting
 CANCEL_MEM_SLACK = 64 * 2**20  # bytes a cancelled run may leave allocated
+# Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s and
+# float32 flop/s outside the tensor cores. A bound is the larger of the two
+# times for the bytes a kernel must move and the flops it must do.
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+LARGE_G, LARGE_G_EXTRA = 700, 1  # the random-input K1 phase: G = 700, D = 5
 
 
 class SmokeFailure(Exception):
@@ -153,6 +164,34 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(S, G, D, B, F):
+    """(ms, "bytes" or "operations") for one K1 launch: V_next read and V_out
+    written once, both factor rows, the table and geometry read once, the
+    partials written once; D G (2B + 13) flops per sim for the decisions
+    (fit 2B + 3, actual 10) and 2 (B+1)(G + B+1) for the partials."""
+    B1 = B + 1
+    nbytes = 4 * (2 * F * S + 2 * G * S + D * G * (B + 2) + 2 * D * G + G + B1 * (G + B1))
+    flops = S * (D * G * (2 * B + 13) + 2 * B1 * (G + B1))
+    return _bound(nbytes, flops)
+
+
+def k2_bound(n, S, F, B, D, panels):
+    """(ms, "bytes" or "operations") for one K2 launch over n steps: the
+    factor paths read once, inventories in and out, PVs out, the panels
+    written once when asked for; per sim and step 5B + 2F + 30 flops for the
+    spot, design row and rates, D (5(B+1) + 23) for the decisions (the
+    interpolated continuation is 5 flops per basis term) and B + 8 for the
+    sums."""
+    nbytes = 4 * (n * F * S + 3 * S + (24 * S * n if panels else 0))
+    flops = n * S * (5 * B + 2 * F + 30 + D * (5 * (B + 1) + 23) + B + 8)
+    return _bound(nbytes, flops)
 
 
 def rel_err(a, b):
@@ -239,7 +278,7 @@ def _slice_sims(t, n):
 
 def _check_backward(label, args, kw):
     """K1 against its plain version at COMPARE_SIMS sims, then both timed at
-    the recorded width (1M sims)."""
+    the recorded width, beside the bound and the partial product alone."""
     import torch
     from storage_tpu_torch.ops import backward
 
@@ -256,17 +295,29 @@ def _check_backward(label, args, kw):
     frac = float(flipped.float().mean())
     max_ok = float(diff[~flipped].max()) if bool((~flipped).any()) else 0.0
     e_graw, e_praw = rel_err(graw_k, graw_r), rel_err(praw_k, praw_r)
+    S, G, D, B, F = v_next.shape[1], v_next.shape[0], table.shape[0], spec.num_basis, f.shape[0]
     ms = cuda_ms(lambda: backward._backward_update_cuda(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: backward.backward_update_reference(*args, **kw), 3)
-    print(f"[{label}] {COMPARE_SIMS} sims G={v_r.shape[0]} B={spec.num_basis} "
-          f"D={table.shape[0]}: V max|diff| {float(diff.max()):.3e} (max|V| {scale:.3e}), "
-          f"outside flips {max_ok:.3e}, flipped {int(flipped.sum())} = {frac:.2e}; "
-          f"graw rel {e_graw:.2e}, praw rel {e_praw:.2e}; "
-          f"{v_next.shape[1]} sims: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # The reduction alone as one library call (the port never calls it).
+    xr = torch.randn(B + 1, S, device=v_next.device)
+    vc_t = (v_next - vbar[:, None]).T
+    praw_matmul_ms = cuda_ms(lambda: torch.matmul(xr, vc_t), 20)
+    del xr, vc_t
+    bound_ms, bound_by = k1_bound(S, G, D, B, F)
+    print(f"[{label}] {COMPARE_SIMS} sims G={G} B={B} D={D}: V max|diff| "
+          f"{float(diff.max()):.3e} (max|V| {scale:.3e}), outside flips {max_ok:.3e}, flipped "
+          f"{int(flipped.sum())} = {frac:.2e}; graw rel {e_graw:.2e}, praw rel {e_praw:.2e}; "
+          f"{S} sims: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}), share {bound_ms / ms:.3f}; torch.matmul of the partial product "
+          f"{praw_matmul_ms:.3f} ms")
     check(frac <= FLIP_FRAC_MAX, f"{label} flipped fraction {frac:.2e} > {FLIP_FRAC_MAX}")
     check(e_graw <= PARTIALS_RTOL and e_praw <= PARTIALS_RTOL,
           f"{label} partials disagree: graw {e_graw:.2e}, praw {e_praw:.2e}")
-    return dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms)
+    # library_ms: no single torch call computes K1's function (an argmax over
+    # decisions with interpolation, fused with the regression partials).
+    return dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share=bound_ms / ms, library_ms=None,
+                praw_matmul_ms=praw_matmul_ms)
 
 
 def phase_backward(captured):
@@ -274,13 +325,13 @@ def phase_backward(captured):
     return _check_backward("K1 backward_update", args, kw)
 
 
-def phase_backward_d5(captured):
-    """K1 on the recorded period with the decision geometry and table of
-    ``extra_decisions=1`` (D = 5), built as the engine builds them."""
+def d5_args(captured):
+    """The recorded K1 launch's operands with the decision geometry and table
+    of ``extra_decisions=1`` (D = 5), built as the engine builds them."""
     from storage_tpu_torch.engines import lsmc
     from storage_tpu_torch.ops.ratchets import INTERP_LINEAR
 
-    args, kw = captured["bwd"]
+    args = captured["bwd"][0]
     coeffs, vbar_next = captured["table"][:2]
     dev = captured["dev"]
     G = args[2].shape[0]
@@ -292,8 +343,36 @@ def phase_backward_d5(captured):
                                                                 G, 1))
     table = lsmc.decision_table(coeffs, vbar_next, j, w, cost, price)
     check(table.shape[0] == 5, f"K1 D=5 table has {table.shape[0]} decisions")
-    d5_args = args[:3] + (table,) + args[4:6] + (j, w) + args[8:]
-    return _check_backward("K1 backward_update D=5", d5_args, kw)
+    return args[:3] + (table,) + args[4:6] + (j, w) + args[8:]
+
+
+def phase_backward_d5(captured):
+    return _check_backward("K1 backward_update D=5", d5_args(captured), captured["bwd"][1])
+
+
+def phase_backward_large_grid(captured):
+    """K1 at G = 700, D = 5 (past the PR-1 kernel's shared-memory limit) on
+    random inputs at COMPARE_SIMS sims, with the recorded launch's basis:
+    decisions move inventory by at most 4 grid points, as on the main path."""
+    import torch
+
+    args, kw = captured["bwd"]
+    spec = kw["spec"]
+    F, B, G, D, S = args[0].shape[0], spec.num_basis, LARGE_G, 3 + 2 * LARGE_G_EXTRA, COMPARE_SIMS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    v_next = r(G, S, scale=50.0) + torch.linspace(0, 400, G, device="cuda")[:, None]
+    step = torch.randint(-4, 5, (D, G), generator=gen, device="cuda")
+    j = (torch.arange(G, device="cuda") + step).clamp(0, G - 2).to(torch.int32)
+    musd = torch.stack([r(B, scale=0.3), torch.rand(B, generator=gen, device="cuda") + 0.5])
+    scal = torch.cat([torch.full((2, 1), 2.7, device="cuda"),
+                      torch.rand(2, F, generator=gen, device="cuda") * 0.3], 1)
+    large = (r(F, S, scale=0.5), r(F, S, scale=0.5), v_next, r(D, G, B + 2, scale=20.0),
+             v_next.mean(dim=1), musd, j, torch.rand(D, G, generator=gen, device="cuda"), scal)
+    return _check_backward(f"K1 backward_update G={G} D={D}", large, kw)
 
 
 def _check_forward(label, args, kw, panels=False):
@@ -339,17 +418,24 @@ def _check_forward(label, args, kw, panels=False):
         kw = dict(kw, panels=full)
     ms = cuda_ms(lambda: forward._forward_sim_cuda(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: forward.forward_sim_reference(*args, **kw), 1)
+    D = 3 + 2 * kw.get("extra_decisions", 0)
+    bound_ms, bound_by = k2_bound(n, factors.shape[2], factors.shape[1], kw["spec"].num_basis, D,
+                                  panels)
     print(f"[{label}] {COMPARE_SIMS} sims x {n} steps: sums rel "
           f"{e_sums:.2e}, xsums rel {e_xsums:.2e}, pv max|diff| {float(pv_diff.max()):.3e} "
           f"(outside flips {max_ok:.3e}), flipped paths {int(flipped.sum())} = {frac:.2e} "
           f"= {per_decision:.2e} per decision, NPV effect {npv_effect:.2e}{panel_note}; "
-          f"{factors.shape[2]} sims: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"{factors.shape[2]} sims: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
     check(per_decision <= FLIP_FRAC_MAX / 10,
           f"{label} flips {per_decision:.2e} per decision > {FLIP_FRAC_MAX / 10}")
     check(npv_effect <= FWD_NPV_RTOL, f"{label} NPV effect {npv_effect:.2e} > {FWD_NPV_RTOL}")
     check(e_sums <= PARTIALS_RTOL and e_xsums <= PARTIALS_RTOL,
           f"{label} sums disagree: sums {e_sums:.2e}, xsums {e_xsums:.2e}")
-    return dict(max_abs_err=float(pv_diff.max()), ms=ms, plain_ms=plain_ms)
+    # library_ms: no single torch call computes K2's function (a sequential
+    # argmax policy over the horizon).
+    return dict(max_abs_err=float(pv_diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share=bound_ms / ms, library_ms=None)
 
 
 def phase_forward(captured):
@@ -573,6 +659,7 @@ def main() -> int:
         captured = phase_capture()
         k1 = phase_backward(captured)
         k1_d5 = phase_backward_d5(captured)
+        k1_large = phase_backward_large_grid(captured)
         k2 = phase_forward(captured)
         k2_variants = phase_forward_variants(captured)
         del captured
@@ -596,7 +683,7 @@ def main() -> int:
              replaces="storage_tpu/ops/pallas_backward.py:114",
              launches=counts["backward_update"], **k1,
              launches_by_path={p: c["backward_update"] for p, c in paths.items()},
-             variants={"D5": k1_d5}),
+             variants={"D5": k1_d5, f"G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}": k1_large}),
         dict(name="forward_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/forward_sim.cu",
              replaces="storage_tpu/ops/pallas_forward.py:96",

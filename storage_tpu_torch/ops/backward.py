@@ -25,7 +25,7 @@ import torch
 from . import count_launch
 from .regression import BasisSpec, cholesky_solve_or_zero, design_columns, spot_from_factors
 
-BLOCK_SIMS = 128  # threads (= sims) per block of the CUDA kernel
+_GRIDS = {}  # (device, S, D, B) -> the kernel's persistent grid (blocks)
 
 
 def _standardized_rows(spec: BasisSpec, factors, coef, musd) -> torch.Tensor:
@@ -71,6 +71,20 @@ def backward_update_reference(
     return v_out, graw, praw
 
 
+def _persistent_grid(lib, device, S: int, D: int, B: int) -> int:
+    """Blocks (= partials) of the kernel's persistent grid for these shapes."""
+    from .csrc import check_launch
+
+    key = (device.index, S, D, B)
+    if key not in _GRIDS:
+        with torch.cuda.device(device):
+            n = lib.backward_update_blocks(S, D, B)
+        if n <= 0:
+            check_launch("backward_update", -n)
+        _GRIDS[key] = n
+    return _GRIDS[key]
+
+
 def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
                           scal, spec: BasisSpec):
     """Launch ``backward_update_kernel`` (CUDA tensors only)."""
@@ -88,21 +102,22 @@ def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom
         check_operand(name, t, shape)
     check_operand("geom_j", geom_j, (D, G), torch.int32)
     lib = kernels()
-    nblk = -(-S // BLOCK_SIMS)
+    nblk = _persistent_grid(lib, v_next.device, S, D, B)
     v_out = torch.empty_like(v_next)
-    graw_part = torch.empty((nblk, B + 1, B + 1), dtype=torch.float32, device=v_next.device)
-    praw_part = torch.empty((nblk, B + 1, G), dtype=torch.float32, device=v_next.device)
+    # One [B+1, G + B+1] partial per block: praw's columns, then graw's.
+    partials = torch.empty((nblk, B + 1, G + B + 1), dtype=torch.float32, device=v_next.device)
     spot_pow, fac_pow = basis_arrays(spec)
     err = lib.backward_update_launch(
         factors.data_ptr(), factors_prev.data_ptr(), v_next.data_ptr(), v_out.data_ptr(),
         table.data_ptr(), vbar.data_ptr(), musd.data_ptr(), geom_j.data_ptr(),
-        geom_w.data_ptr(), scal.data_ptr(), graw_part.data_ptr(), praw_part.data_ptr(),
-        S, G, D, B, F, spot_pow, fac_pow, BLOCK_SIMS,
+        geom_w.data_ptr(), scal.data_ptr(), partials.data_ptr(),
+        S, G, D, B, F, spot_pow, fac_pow, nblk,
         torch.cuda.current_stream(v_next.device).cuda_stream,
     )
     check_launch("backward_update", err)
     count_launch("backward_update")
-    return v_out, graw_part.sum(dim=0), praw_part.sum(dim=0)
+    sums = partials.sum(dim=0)  # a fixed-order reduction over the blocks
+    return v_out, sums[:, G:], sums[:, :G]
 
 
 def backward_update(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w, scal,

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The ``.cu`` sources in this directory are compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
-plain C interface, at first use, and loaded with :mod:`ctypes`.  The library
-lands in ``storage_tpu_torch/_build/`` under a name that carries a hash of
-the sources, so an edited source is rebuilt and a stale library never loads.
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source, all
+started together, and linked into one shared library with a plain C
+interface, at first use, and loaded with :mod:`ctypes`.  The library lands
+in ``storage_tpu_torch/_build/`` under a name that carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library never
+loads.
 
 Nothing here runs at import: :func:`kernels` builds on its first call, and
 raises :class:`KernelBuildError` (with nvcc's output) if the build fails.
@@ -26,8 +28,7 @@ _SOURCES = ("backward_update.cu", "forward_sim.cu")
 _HEADERS = ("storage_kernels.cuh",)
 BUILD_DIR = _SRC_DIR.parent.parent / "_build"
 NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -79,28 +80,49 @@ def build(verbose: bool = False) -> Path:
     if target.exists() and not verbose:
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp] + [str(_SRC_DIR / s) for s in _SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, target)  # atomic: a concurrent process never loads a partial file
+    nvcc = _nvcc()
+    flags = [*NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, Path(src).stem + ".o") for src in _SOURCES]
+        cmds = [[nvcc, *flags, "-c", "-o", obj, str(_SRC_DIR / src)]
+                for src, obj in zip(_SOURCES, objects)]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True)) for cmd in cmds]
+        outputs = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            outputs.append((cmd, proc.returncode, out + err))
+        lib = os.path.join(tmp, "lib.so")
+        if all(rc == 0 for _, rc, _ in outputs):
+            link = [nvcc, "-shared", "-o", lib, *objects]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            outputs.append((link, proc.returncode, proc.stdout + proc.stderr))
+        failed = [o for o in outputs if o[1] != 0]
+        if failed:
+            raise KernelBuildError("\n".join(
+                f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}" for cmd, rc, text in failed))
+        if verbose:
+            print("".join(text for _, _, text in outputs))
+        os.replace(lib, target)  # atomic: a concurrent process never loads a partial file
     return target
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a kernel library built by :func:`build` and declare its entry points."""
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path}: {e}") from e
+    _declare(lib)
+    return lib
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.backward_update_launch.argtypes = [p] * 12 + [ll, i, i, i, i, p, p, i, p]
+    lib.backward_update_launch.argtypes = [p] * 11 + [ll, i, i, i, i, p, p, i, p]
     lib.backward_update_launch.restype = i
+    lib.backward_update_blocks.argtypes = [ll, i, i]
+    lib.backward_update_blocks.restype = i
     lib.forward_sim_launch.argtypes = [p] * 13 + [ll, i, i, i, i, i, i, i, i, p, p, i, p]
     lib.forward_sim_launch.restype = i
     lib.storage_kernels_error_string.argtypes = [i]
@@ -112,13 +134,7 @@ def kernels() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = build()
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise KernelBuildError(f"cannot load {path}: {e}") from e
-            _declare(lib)
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 

@@ -6,7 +6,8 @@ has no CPU mode).  Run them on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -q
 
 Random inputs at odd sizes exercise what the main path's shapes do not:
-ragged tail blocks, other basis and grid widths, STEP ratchets,
+ragged tail blocks, other basis and grid widths (the backward kernel up to
+G = 700 at D = 5, and bit-identical reruns), STEP ratchets,
 single-pillar (constant-rate) tables, and the forward kernel's options —
 per-sim panels, D = 7 decisions (``extra_decisions=2``) and POLY ratchets
 whose pillar tables are zero-padded to a common height.  Rounding differs
@@ -32,6 +33,11 @@ SPEC_3F = BasisSpec((0, 0, 0, 0, 1, 0, 0, 0, 2, 1),
                     ((0, 0, 0), (1, 0, 0), (0, 0, 1), (0, 1, 0), (0, 0, 0), (2, 0, 0),
                      (0, 0, 2), (0, 2, 0), (0, 0, 0), (1, 0, 0)))
 SPEC_SMALL = BasisSpec((0, 1, 0), ((0, 0, 0), (0, 0, 0), (1, 0, 0)))
+# 16 and 13 terms: the backward kernel reads fitted rows of B + 2 floats as
+# five and four float4s (three up to B = 10).
+SPEC_16 = BasisSpec(tuple(b % 3 for b in range(16)),
+                    tuple(((b // 3) % 2, (b // 6) % 2, b % 2) for b in range(16)))
+SPEC_13 = BasisSpec(SPEC_16.spot_powers[:13], SPEC_16.factor_powers[:13])
 
 
 @pytest.fixture
@@ -42,7 +48,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _backward_inputs(spec, S, G, D, seed, device):
+def _backward_inputs(spec, S, G, D, seed, device, local=False):
+    """Random K1 operands; with ``local`` each decision moves inventory by at
+    most 4 grid points (j near g, as on the main path), else j is uniform."""
     g = torch.Generator().manual_seed(seed)
     F = len(spec.factor_powers[0])
     B = spec.num_basis
@@ -52,7 +60,11 @@ def _backward_inputs(spec, S, G, D, seed, device):
 
     v_next = r(G, S, scale=50.0) + torch.linspace(0, 400, G, device=device)[:, None]
     musd = torch.stack([r(B, scale=0.3), torch.rand(B, generator=g).to(device) + 0.5])
-    j = torch.randint(0, G - 1, (D, G), generator=g, dtype=torch.int32).to(device)
+    if local:
+        step = torch.randint(-4, 5, (D, G), generator=g)
+        j = (torch.arange(G) + step).clamp(0, G - 2).to(torch.int32).to(device)
+    else:
+        j = torch.randint(0, G - 1, (D, G), generator=g, dtype=torch.int32).to(device)
     w = torch.rand(D, G, generator=g).to(device)
     scal = torch.cat([torch.full((2, 1), 2.7), torch.rand(2, F, generator=g) * 0.3], 1).to(device)
     return (r(F, S, scale=0.5), r(F, S, scale=0.5), v_next, r(D, G, B + 2, scale=20.0),
@@ -64,14 +76,51 @@ def _backward_inputs(spec, S, G, D, seed, device):
 def test_backward_update_matches_plain(cuda, spec, S, G, D):
     args = _backward_inputs(spec, S, G, D, seed=S, device=cuda)
     reset_launch_counts()
-    v_k, graw_k, praw_k = backward.backward_update(*args, spec=spec)
+    out = backward.backward_update(*args, spec=spec)
     assert launch_counts()["backward_update"] == 1
+    _assert_backward_agrees(args, spec, out)
+
+
+def _assert_backward_agrees(args, spec, out):
+    v_k, graw_k, praw_k = out
     v_r, graw_r, praw_r = backward.backward_update_reference(*args, spec=spec)
     torch.cuda.synchronize()
     flipped = (v_k - v_r).abs() > 1e-5 * v_r.abs().max()
     assert flipped.float().mean().item() <= 1e-3
     for a, b in ((graw_k, graw_r), (praw_k, praw_r)):
         assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+# Shapes the persistent-grid kernel must take: grids past the PR-1 kernel's
+# shared-memory limit (G = 663 at D = 3, 502 at D = 5, 403 at D = 7), fewer
+# sims than one 128-sim tile, fewer than one pass of the persistent grid,
+# several passes with a ragged tail, G not a multiple of the 16-point chunk,
+# an odd S, small and wide bases, and decisions that move inventory anywhere
+# on the grid (uniform j).
+@pytest.mark.parametrize("spec,S,G,D,local", [
+    (SPEC_3F, 2048, 700, 5, True), (SPEC_3F, 1500, 450, 7, True),
+    (SPEC_3F, 100, 37, 3, True), (SPEC_3F, 20_000, 100, 3, True),
+    (SPEC_3F, 300_004, 100, 3, True), (SPEC_SMALL, 4097, 45, 3, True),
+    (SPEC_3F, 3000, 70, 3, False), (SPEC_16, 3000, 60, 3, True), (SPEC_13, 2000, 50, 5, True),
+], ids=["G700-D5", "G450-D7", "below-tile", "below-grid-pass", "multi-pass", "odd-S",
+        "wide-span", "B16", "B13-D5"])
+def test_backward_update_shapes_match_plain(cuda, spec, S, G, D, local):
+    args = _backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=local)
+    reset_launch_counts()
+    out = backward.backward_update(*args, spec=spec)
+    assert launch_counts()["backward_update"] == 1
+    _assert_backward_agrees(args, spec, out)
+
+
+@pytest.mark.parametrize("D", [3, 5])
+def test_backward_update_is_deterministic(cuda, D):
+    """Two launches on the same inputs give bit-identical outputs."""
+    args = _backward_inputs(SPEC_3F, 300_004, 100, D, seed=7, device=cuda, local=True)
+    first = backward.backward_update(*args, spec=SPEC_3F)
+    second = backward.backward_update(*args, spec=SPEC_3F)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _forward_inputs(spec, S, n, G, P, seed, device):
