@@ -14,16 +14,17 @@ Phases, each printing its own line (every failure exits non-zero):
    mid-horizon backward kernel launch (and of its decision table) and of
    the forward kernel launch.
 4. K1 / K2 — each kernel against its plain PyTorch version on the recorded
-   inputs restricted to 65,536 sims, then both timed at the main path's
-   shapes (1M sims) with CUDA events, beside the least time the card could
-   take (``bound_ms``, from the byte and operation counts of ``k1_bound`` and
-   ``k2_bound``); K1 with ``torch.matmul`` of its ``[B+1, S] x [S, G]``
-   partial product timed as a yardstick of the reduction alone; then the
-   same for K1
-   at D = 5 (``extra_decisions=1`` geometry), K1 at G = 700, D = 5 on random
-   inputs (a grid the PR-1 kernel refused), and K2's variants: per-sim
-   panels, D = 5, and POLY ratchets (cubics fitted through the recorded
-   pillars).
+   inputs (K1 at their full 1M sims, where each block of its persistent grid
+   carries its partials across several tiles; K2 restricted to 65,536 sims),
+   then both timed at the main path's shapes (1M sims) with CUDA events,
+   beside the least time the card could take (``bound_ms``, from the byte
+   and operation counts of ``k1_bound`` and ``k2_bound``); K1 with
+   ``torch.matmul`` of its ``[B+1, S] x [S, G]`` partial product timed as a
+   yardstick of the reduction alone; then the same for K1 at D = 5
+   (``extra_decisions=1`` geometry), K1 at G = 700, D = 5 on random inputs
+   (65,536 sims; a grid the PR-1 kernel refused), and K2's variants:
+   per-sim panels, D = 5, and POLY ratchets (cubics fitted through the
+   recorded pillars).
 5. main    — launch counts reset, the valuation timed once more; the counts
    must show both kernels ran, and NPV and intrinsic value must match the
    JAX reference's record for this case and seed.
@@ -174,11 +175,13 @@ def _bound(nbytes, flops):
 def k1_bound(S, G, D, B, F):
     """(ms, "bytes" or "operations") for one K1 launch: V_next read and V_out
     written once, both factor rows, the table and geometry read once, the
-    partials written once; D G (2B + 13) flops per sim for the decisions
-    (fit 2B + 3, actual 10) and 2 (B+1)(G + B+1) for the partials."""
+    partials written once; per sim D G (2B + 3) flops for the fitted totals,
+    10 G for the winning decision's actual total and its centred value (the
+    function needs it once per grid point), and 2 (B+1)(G + B+1) for the
+    partials."""
     B1 = B + 1
     nbytes = 4 * (2 * F * S + 2 * G * S + D * G * (B + 2) + 2 * D * G + G + B1 * (G + B1))
-    flops = S * (D * G * (2 * B + 13) + 2 * B1 * (G + B1))
+    flops = S * (D * G * (2 * B + 3) + 10 * G + 2 * B1 * (G + B1))
     return _bound(nbytes, flops)
 
 
@@ -276,26 +279,35 @@ def _slice_sims(t, n):
     return t[..., :n].contiguous()
 
 
-def _check_backward(label, args, kw):
-    """K1 against its plain version at COMPARE_SIMS sims, then both timed at
-    the recorded width, beside the bound and the partial product alone."""
+def _check_backward(label, args, kw, min_tiles_per_block=1):
+    """K1 against its plain version on ``args`` at their full width, then both
+    timed there, beside the bound and the partial product alone. Each block
+    of the kernel's persistent grid must walk at least ``min_tiles_per_block``
+    128-sim tiles, so that the comparison covers the partials it carries from
+    one tile to the next."""
     import torch
-    from storage_tpu_torch.ops import backward
+    from storage_tpu_torch.ops import backward, csrc
 
     (f, fp, v_next, table, vbar, musd, gj, gw, scal) = args
     spec = kw["spec"]
-    small = (_slice_sims(f, COMPARE_SIMS), _slice_sims(fp, COMPARE_SIMS),
-             _slice_sims(v_next, COMPARE_SIMS), table, vbar, musd, gj, gw, scal)
-    v_k, graw_k, praw_k = backward._backward_update_cuda(*small, spec=spec)
-    v_r, graw_r, praw_r = backward.backward_update_reference(*small, spec=spec)
+    S, G, D, B, F = v_next.shape[1], v_next.shape[0], table.shape[0], spec.num_basis, f.shape[0]
+    blocks = backward._persistent_grid(csrc.kernels(), v_next.device, S, D, B)
+    tiles_per_block = -(-S // 128) // blocks  # the fewest a block walks
+    check(tiles_per_block >= min_tiles_per_block,
+          f"{label}: {S} sims give {blocks} blocks {tiles_per_block} tiles each, "
+          f"fewer than {min_tiles_per_block}")
+    v_k, graw_k, praw_k = backward._backward_update_cuda(*args, **kw)
+    v_r, graw_r, praw_r = backward.backward_update_reference(*args, **kw)
     torch.cuda.synchronize()
     scale = float(v_r.abs().max())
     diff = (v_k - v_r).abs()
     flipped = diff > V_TOL * scale
-    frac = float(flipped.float().mean())
-    max_ok = float(diff[~flipped].max()) if bool((~flipped).any()) else 0.0
+    n_flipped = int(flipped.sum())
+    frac = n_flipped / flipped.numel()
+    max_err = float(diff.max())
+    max_ok = float(diff[~flipped].max()) if n_flipped < flipped.numel() else 0.0
     e_graw, e_praw = rel_err(graw_k, graw_r), rel_err(praw_k, praw_r)
-    S, G, D, B, F = v_next.shape[1], v_next.shape[0], table.shape[0], spec.num_basis, f.shape[0]
+    del v_k, v_r, diff, flipped
     ms = cuda_ms(lambda: backward._backward_update_cuda(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: backward.backward_update_reference(*args, **kw), 3)
     # The reduction alone as one library call (the port never calls it).
@@ -304,10 +316,10 @@ def _check_backward(label, args, kw):
     praw_matmul_ms = cuda_ms(lambda: torch.matmul(xr, vc_t), 20)
     del xr, vc_t
     bound_ms, bound_by = k1_bound(S, G, D, B, F)
-    print(f"[{label}] {COMPARE_SIMS} sims G={G} B={B} D={D}: V max|diff| "
-          f"{float(diff.max()):.3e} (max|V| {scale:.3e}), outside flips {max_ok:.3e}, flipped "
-          f"{int(flipped.sum())} = {frac:.2e}; graw rel {e_graw:.2e}, praw rel {e_praw:.2e}; "
-          f"{S} sims: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+    print(f"[{label}] {S} sims G={G} B={B} D={D}, {blocks} blocks of >= {tiles_per_block} "
+          f"tiles: V max|diff| {max_err:.3e} (max|V| {scale:.3e}), outside flips "
+          f"{max_ok:.3e}, flipped {n_flipped} = {frac:.2e}; graw rel {e_graw:.2e}, praw rel "
+          f"{e_praw:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}), share {bound_ms / ms:.3f}; torch.matmul of the partial product "
           f"{praw_matmul_ms:.3f} ms")
     check(frac <= FLIP_FRAC_MAX, f"{label} flipped fraction {frac:.2e} > {FLIP_FRAC_MAX}")
@@ -315,14 +327,14 @@ def _check_backward(label, args, kw):
           f"{label} partials disagree: graw {e_graw:.2e}, praw {e_praw:.2e}")
     # library_ms: no single torch call computes K1's function (an argmax over
     # decisions with interpolation, fused with the regression partials).
-    return dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, share=bound_ms / ms, library_ms=None,
                 praw_matmul_ms=praw_matmul_ms)
 
 
 def phase_backward(captured):
     args, kw = captured["bwd"]
-    return _check_backward("K1 backward_update", args, kw)
+    return _check_backward("K1 backward_update", args, kw, min_tiles_per_block=2)
 
 
 def d5_args(captured):
@@ -347,7 +359,8 @@ def d5_args(captured):
 
 
 def phase_backward_d5(captured):
-    return _check_backward("K1 backward_update D=5", d5_args(captured), captured["bwd"][1])
+    return _check_backward("K1 backward_update D=5", d5_args(captured), captured["bwd"][1],
+                           min_tiles_per_block=2)
 
 
 def phase_backward_large_grid(captured):

@@ -70,22 +70,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"libstorage_kernels_{_source_hash()}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if no library for the current sources exists.
-
-    Returns the library's path.  ``verbose`` adds ``-Xptxas -v`` (registers,
-    shared memory and spills per kernel) and prints nvcc's output.
-    """
-    target = library_path()
-    if target.exists() and not verbose:
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(src_dir: Path, sources, target: Path, verbose: bool = False) -> None:
+    """Compile ``sources`` (file names in ``src_dir``) for Hopper, one ``nvcc``
+    per source, all started together, and link them into the shared library
+    ``target``.  ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and
+    spills per kernel) and prints nvcc's output."""
     nvcc = _nvcc()
     flags = [*NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objects = [os.path.join(tmp, Path(src).stem + ".o") for src in _SOURCES]
-        cmds = [[nvcc, *flags, "-c", "-o", obj, str(_SRC_DIR / src)]
-                for src, obj in zip(_SOURCES, objects)]
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objects = [os.path.join(tmp, Path(src).stem + ".o") for src in sources]
+        cmds = [[nvcc, *flags, "-c", "-o", obj, str(Path(src_dir) / src)]
+                for src, obj in zip(sources, objects)]
         procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True)) for cmd in cmds]
         outputs = []
@@ -94,7 +90,7 @@ def build(verbose: bool = False) -> Path:
             outputs.append((cmd, proc.returncode, out + err))
         lib = os.path.join(tmp, "lib.so")
         if all(rc == 0 for _, rc, _ in outputs):
-            link = [nvcc, "-shared", "-o", lib, *objects]
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]
             proc = subprocess.run(link, capture_output=True, text=True)
             outputs.append((link, proc.returncode, proc.stdout + proc.stderr))
         failed = [o for o in outputs if o[1] != 0]
@@ -104,6 +100,15 @@ def build(verbose: bool = False) -> Path:
         if verbose:
             print("".join(text for _, _, text in outputs))
         os.replace(lib, target)  # atomic: a concurrent process never loads a partial file
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the package's kernels if no library for the current sources
+    exists (with ``verbose``, always, printing ``-Xptxas -v``).  Returns the
+    library's path."""
+    target = library_path()
+    if not target.exists() or verbose:
+        compile_library(_SRC_DIR, _SOURCES, target, verbose)
     return target
 
 

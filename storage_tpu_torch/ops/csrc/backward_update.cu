@@ -20,16 +20,17 @@
 //
 // What bounds it on the H100. Per launch it must read V_next and write V_out
 // (2 x 4 B x G x S = 800 MB at 1M sims, G = 100) and read the two factor
-// rows (24 MB): 0.246 ms at 3.35 TB/s. Its arithmetic, D G (2B + 13) +
-// 2 (B+1)(G + B+1) flops per sim (12.3 GFLOP at D = 3, B = 10), takes
-// 0.184 ms at 67 TFLOP/s float32, so at D = 3 the bytes bound it and at
-// D = 5 (18.9 GFLOP, 0.282 ms) the operations do. The tensor cores are not
-// used: the only product (praw) is ~2% of the flops, and TF32's 10-bit
-// mantissa is too coarse for partials whose Gram has a condition number up
-// to 3e6 and for fitted totals that decide an argmax.
+// rows (24 MB): 0.246 ms at 3.35 TB/s. Its arithmetic per sim is D G (2B + 3)
+// flops for the fitted totals, 10 G for the winning decision's actual total
+// and its centred value, and 2 (B+1)(G + B+1) for the partials: 10.3 GFLOP
+// at D = 3 and 14.9 GFLOP at D = 5 (B = 10), 0.154 and 0.223 ms at 67 TFLOP/s
+// float32. So the bytes bound it at both. The tensor cores are not used:
+// the only product (praw) is a fifth of the flops at D = 3, and TF32's
+// 10-bit mantissa is too coarse for partials whose Gram has a condition
+// number up to 3e6 and for fitted totals that decide an argmax.
 //
 // Design:
-// - One sim per thread (kSims), 128 threads per block. A persistent grid
+// - One sim per thread, 128 threads per block. A persistent grid
 //   (blocks per SM from the occupancy calculator, times the SM count, at
 //   most one block per 128-sim tile) walks the tiles; each block keeps its
 //   partials across its tiles and writes one [B+1, G + B+1] partial (praw
@@ -72,21 +73,19 @@
 //   may flip against the plain version; chip_smoke counts them.
 //
 // Shared memory per block, in bytes, with NQ = max(3, ceil((B + 2) / 4)):
-//   4 [2 D kChunk (4 NQ + 10) + (B + 1 + kChunk)(128 kSims + 4)]
+//   4 [2 D kChunk (4 NQ + 10) + (B + 1 + kChunk)(128 + 4)]
 // (D = 3, B = 10: 22,704 B; D = 5: 28,336 B.) V_out is a separate buffer: a
 // chunk reads rows of V_next outside itself.
 #include "storage_kernels.cuh"
 
 namespace storage_kernels {
 
-constexpr int kThreads = 128;                // threads per block
-constexpr int kSims = 1;                     // sims per thread: tid, tid + 128, ...
-constexpr int kTileSims = kThreads * kSims;  // sims per tile
+constexpr int kThreads = 128;                // threads per block = sims per tile
 constexpr int kChunk = 16;                   // grid points per chunk
 constexpr int kDUnroll = 3;                  // decisions evaluated together
 constexpr int kLookahead = 2;                // grid points a V_next read is issued ahead
 constexpr int kMinBlocks = 7;                // resident blocks per SM the registers allow
-constexpr int kPitch = kTileSims + 4;        // row pitch of the xr and vc tiles (floats)
+constexpr int kPitch = kThreads + 4;         // row pitch of the xr and vc tiles (floats)
 constexpr int kAGroups = kThreads / kChunk;  // basis-row groups of the praw product
 constexpr int kAPerThread = (kMaxBasis + 1 + kAGroups - 1) / kAGroups;
 static_assert(kThreads % kChunk == 0, "a chunk must divide the block");
@@ -178,9 +177,9 @@ __device__ __forceinline__ void prepare_stage(const Operands& op, const Stage& s
   }
 }
 
-// The decisions of one chunk for this thread's kSims sims: best_act for each
-// grid point into V_out and, centred, into the vc tile. The fitted total of
-// every decision is one FMA chain over the extended row (xn, 1, spot) against
+// The decisions of one chunk for this thread's sim: best_act for each grid
+// point into V_out and, centred, into the vc tile. The fitted total of every
+// decision is one FMA chain over the extended row (xn, 1, spot) against
 // (weights, affine, price). Only the winning decision's actual total is
 // computed, so V_next is read twice per sim and grid point, whatever D; the
 // winner's two reads are issued at grid point g and used at g + kLookahead,
@@ -188,86 +187,63 @@ __device__ __forceinline__ void prepare_stage(const Operands& op, const Stage& s
 // the last one reads sim 0's column (vcol) and writes nothing but a zero vc.
 template <int kNQ>
 __device__ __forceinline__ void decide_chunk(const Operands& op, const Stage& st,
-                                             const float (&xn)[kSims][4 * kNQ],
-                                             const float (&spot)[kSims], const bool (&valid)[kSims],
-                                             const long long (&s)[kSims],
-                                             const char* const (&vcol)[kSims], int g0, int gcount,
+                                             const float (&xn)[4 * kNQ], float spot, bool valid,
+                                             long long s, const char* vcol, int g0, int gcount,
                                              float* s_vc) {
   const int tid = threadIdx.x;
   // The reads in flight: stage a holds grid point gl - kLookahead + a's
   // winning entry and its two V_next values.
-  int pe[kLookahead][kSims];
-  float pr0[kLookahead][kSims], pr1[kLookahead][kSims];
+  int pe[kLookahead];
+  float pr0[kLookahead], pr1[kLookahead];
   for (int gl = 0; gl < gcount + kLookahead; ++gl) {
-    int ne[kSims];
-    float nr0[kSims], nr1[kSims];
+    int ne;
+    float nr0, nr1;
     if (gl < gcount) {
-      float best_fit[kSims];
-#pragma unroll
-      for (int i = 0; i < kSims; ++i) {
-        best_fit[i] = 0.0f;
-        ne[i] = gl;
-      }
+      float best_fit = 0.0f;
+      ne = gl;
 #pragma unroll kDUnroll
       for (int d = 0; d < op.num_decisions; ++d) {
         const int e = d * kChunk + gl;
         const float4* T = reinterpret_cast<const float4*>(st.tab + e * 4 * kNQ);
-        float fit[kSims];
-#pragma unroll
-        for (int i = 0; i < kSims; ++i) fit[i] = 0.0f;
+        float fit = 0.0f;
 #pragma unroll
         for (int q = 0; q < kNQ; ++q) {
           const float4 t = T[q];
-#pragma unroll
-          for (int i = 0; i < kSims; ++i) {
-            fit[i] = __fmaf_rn(t.x, xn[i][4 * q], fit[i]);
-            fit[i] = __fmaf_rn(t.y, xn[i][4 * q + 1], fit[i]);
-            fit[i] = __fmaf_rn(t.z, xn[i][4 * q + 2], fit[i]);
-            fit[i] = __fmaf_rn(t.w, xn[i][4 * q + 3], fit[i]);
-          }
+          fit = __fmaf_rn(t.x, xn[4 * q], fit);
+          fit = __fmaf_rn(t.y, xn[4 * q + 1], fit);
+          fit = __fmaf_rn(t.z, xn[4 * q + 2], fit);
+          fit = __fmaf_rn(t.w, xn[4 * q + 3], fit);
         }
-#pragma unroll
-        for (int i = 0; i < kSims; ++i) {
-          // Decision 0 seeds unconditionally; later ones replace it only
-          // when strictly better (first-occurrence argmax).
-          if (d == 0 || fit[i] > best_fit[i]) {
-            best_fit[i] = fit[i];
-            ne[i] = e;
-          }
+        // Decision 0 seeds unconditionally; later ones replace it only when
+        // strictly better (first-occurrence argmax).
+        if (d == 0 || fit > best_fit) {
+          best_fit = fit;
+          ne = e;
         }
       }
-#pragma unroll
-      for (int i = 0; i < kSims; ++i) {
-        const float4 k1 = st.dec[2 * ne[i] + 1];  // affine, price, j, j + 1
-        nr0[i] = __ldg(reinterpret_cast<const float*>(
-            vcol[i] + (size_t)__float_as_uint(k1.z) * op.row_bytes));
-        nr1[i] = __ldg(reinterpret_cast<const float*>(
-            vcol[i] + (size_t)__float_as_uint(k1.w) * op.row_bytes));
-      }
+      const float4 k1 = st.dec[2 * ne + 1];  // affine, price, j, j + 1
+      nr0 = __ldg(reinterpret_cast<const float*>(vcol + (size_t)__float_as_uint(k1.z) *
+                                                            op.row_bytes));
+      nr1 = __ldg(reinterpret_cast<const float*>(vcol + (size_t)__float_as_uint(k1.w) *
+                                                            op.row_bytes));
     }
-    if (gl >= kLookahead) {  // the actual totals of grid point gl - kLookahead
+    if (gl >= kLookahead) {  // the actual total of grid point gl - kLookahead
       const int g = g0 + gl - kLookahead;
       const float vb = __ldg(op.vbar + g);
-#pragma unroll
-      for (int i = 0; i < kSims; ++i) {
-        const float4 k0 = st.dec[2 * pe[0][i]];      // vbar[j], vbar[j+1], w, 1 - w
-        const float4 k1 = st.dec[2 * pe[0][i] + 1];  // affine, price, j, j + 1
-        const float v0 = __fsub_rn(pr0[0][i], k0.x);
-        const float v1 = __fsub_rn(pr1[0][i], k0.y);
-        const float lin = __fmaf_rn(v1, k0.z, __fmul_rn(v0, k0.w));
-        const float act = __fmaf_rn(k1.y, spot[i], __fadd_rn(lin, k1.x));
-        if (valid[i]) op.v_out[(size_t)g * op.num_sims + s[i]] = act;
-        s_vc[(g - g0) * kPitch + i * kThreads + tid] = valid[i] ? __fsub_rn(act, vb) : 0.0f;
-      }
+      const float4 k0 = st.dec[2 * pe[0]];      // vbar[j], vbar[j+1], w, 1 - w
+      const float4 k1 = st.dec[2 * pe[0] + 1];  // affine, price, j, j + 1
+      const float v0 = __fsub_rn(pr0[0], k0.x);
+      const float v1 = __fsub_rn(pr1[0], k0.y);
+      const float lin = __fmaf_rn(v1, k0.z, __fmul_rn(v0, k0.w));
+      const float act = __fmaf_rn(k1.y, spot, __fadd_rn(lin, k1.x));
+      if (valid) op.v_out[(size_t)g * op.num_sims + s] = act;
+      s_vc[(g - g0) * kPitch + tid] = valid ? __fsub_rn(act, vb) : 0.0f;
     }
 #pragma unroll
     for (int a = 0; a < kLookahead; ++a) {
-#pragma unroll
-      for (int i = 0; i < kSims; ++i) {
-        pe[a][i] = a + 1 < kLookahead ? pe[a + 1][i] : ne[i];
-        pr0[a][i] = a + 1 < kLookahead ? pr0[a + 1][i] : nr0[i];
-        pr1[a][i] = a + 1 < kLookahead ? pr1[a + 1][i] : nr1[i];
-      }
+      pe[a] = a + 1 < kLookahead ? pe[a + 1] : ne;
+      pr0[a] = a + 1 < kLookahead ? pr0[a + 1] : nr0;
+      pr1[a] = a + 1 < kLookahead ? pr1[a + 1] : nr1;
     }
   }
 }
@@ -288,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float* s_vc = s_xr + B1 * kPitch;                 // [kChunk, kPitch] centred new values
 
   const int nchunks = (G + kChunk - 1) / kChunk;
-  const long long ntiles = (S + kTileSims - 1) / kTileSims;
+  const long long ntiles = (S + kThreads - 1) / kThreads;
   const long long my_tiles = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
   const long long nitems = my_tiles * nchunks;
   const int part_row = G + B1;
@@ -301,11 +277,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   __syncthreads();
   prepare_stage<kNQ>(op, stage_at(smem, 0, DC, kNQ), B, 0);
 
-  float xn[kSims][4 * kNQ];  // (standardized design row, 1, spot, 0...) of each sim
-  float spot[kSims];
-  bool valid[kSims];
-  long long s[kSims];
-  const char* vcol[kSims];  // each sim's V_next column (sim 0's past the last sim)
+  float xn[4 * kNQ];  // (standardized design row, 1, spot, 0...) of this thread's sim
+  float spot = 0.0f;
+  bool valid = false;
+  long long s = 0;
+  const char* vcol = nullptr;  // the sim's V_next column (sim 0's past the last sim)
   const int pg = tid % kChunk;  // praw product: this thread's grid point in the chunk
   const int ag = tid / kChunk;  // and its basis rows ag, ag + kAGroups, ...
 
@@ -318,55 +294,52 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (more) issue_copies<kNQ>(op, stage_at(smem, buf ^ 1, DC, kNQ), B, c1);
     __syncthreads();  // this item's constants are ready; the last product's reads are done
 
-    if (c == 0) {  // a new tile: its sims' design rows
+    if (c == 0) {  // a new tile: its sim's design rows
+      s = tile * kThreads + tid;
+      valid = s < S;
+      vcol = reinterpret_cast<const char*>(op.v_next + (valid ? s : 0));
+      float xr[kMaxBasis + 1];
+      float xfull[kMaxBasis];
+      spot = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kSims; ++i) {
-        s[i] = tile * kTileSims + i * kThreads + tid;
-        valid[i] = s[i] < S;
-        vcol[i] = reinterpret_cast<const char*>(op.v_next + (valid[i] ? s[i] : 0));
-        float xr[kMaxBasis + 1];
-        float xfull[kMaxBasis];
-        spot[i] = 0.0f;
+      for (int b = 0; b < kMaxBasis; ++b) xfull[b] = 0.0f;
 #pragma unroll
-        for (int b = 0; b < kMaxBasis; ++b) xfull[b] = 0.0f;
+      for (int b = 0; b <= kMaxBasis; ++b) xr[b] = 0.0f;
+      if (valid) {
+        float fc[kMaxFactors], fp[kMaxFactors];
 #pragma unroll
-        for (int b = 0; b <= kMaxBasis; ++b) xr[b] = 0.0f;
-        if (valid[i]) {
-          float fc[kMaxFactors], fp[kMaxFactors];
-#pragma unroll
-          for (int f = 0; f < kMaxFactors; ++f) {
-            if (f < F) {
-              fc[f] = op.f_cur[(size_t)f * S + s[i]];
-              fp[f] = op.f_prev[(size_t)f * S + s[i]];
-            }
-          }
-          spot[i] = spot_of(op.scal, fc, F);
-          design_row(bd, spot[i], fc, xfull);
-          const float spot_prev = spot_of(op.scal + 1 + F, fp, F);
-          design_row(bd, spot_prev, fp, xr);
-#pragma unroll
-          for (int b = 0; b < kMaxBasis; ++b) {
-            if (b < B) {
-              xfull[b] = (xfull[b] - op.musd[b]) / op.musd[B + b];
-              xr[b] = (xr[b] - op.musd[b]) / op.musd[B + b];
-            }
-          }
-#pragma unroll
-          for (int b = 0; b <= kMaxBasis; ++b) {
-            if (b == B) xr[b] = 1.0f;
+        for (int f = 0; f < kMaxFactors; ++f) {
+          if (f < F) {
+            fc[f] = op.f_cur[(size_t)f * S + s];
+            fp[f] = op.f_prev[(size_t)f * S + s];
           }
         }
+        spot = spot_of(op.scal, fc, F);
+        design_row(bd, spot, fc, xfull);
+        const float spot_prev = spot_of(op.scal + 1 + F, fp, F);
+        design_row(bd, spot_prev, fp, xr);
 #pragma unroll
-        for (int b = 0; b < 4 * kNQ; ++b) {
-          xn[i][b] = b < kMaxBasis && b < B ? xfull[b < kMaxBasis ? b : 0]
-                     : b == B               ? 1.0f
-                     : b == B + 1           ? spot[i]
-                                            : 0.0f;
+        for (int b = 0; b < kMaxBasis; ++b) {
+          if (b < B) {
+            xfull[b] = (xfull[b] - op.musd[b]) / op.musd[B + b];
+            xr[b] = (xr[b] - op.musd[b]) / op.musd[B + b];
+          }
         }
 #pragma unroll
         for (int b = 0; b <= kMaxBasis; ++b) {
-          if (b < B1) s_xr[b * kPitch + i * kThreads + tid] = xr[b];
+          if (b == B) xr[b] = 1.0f;
         }
+      }
+#pragma unroll
+      for (int b = 0; b < 4 * kNQ; ++b) {
+        xn[b] = b < kMaxBasis && b < B ? xfull[b < kMaxBasis ? b : 0]
+                : b == B               ? 1.0f
+                : b == B + 1           ? spot
+                                       : 0.0f;
+      }
+#pragma unroll
+      for (int b = 0; b <= kMaxBasis; ++b) {
+        if (b < B1) s_xr[b * kPitch + tid] = xr[b];
       }
     }
 
@@ -384,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
     for (int k = 0; k < kAPerThread; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0f;
 #pragma unroll 4
-    for (int s4 = 0; s4 < kTileSims; s4 += 4) {
+    for (int s4 = 0; s4 < kThreads; s4 += 4) {
       const float4 v = *reinterpret_cast<const float4*>(s_vc + pg * kPitch + s4);
 #pragma unroll
       for (int k = 0; k < kAPerThread; ++k) {
@@ -414,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const int a = e / B1;
         const int b = e - a * B1;
         float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int s4 = 0; s4 < kTileSims; s4 += 4) {
+        for (int s4 = 0; s4 < kThreads; s4 += 4) {
           const float4 x = *reinterpret_cast<const float4*>(s_xr + a * kPitch + s4);
           const float4 y = *reinterpret_cast<const float4*>(s_xr + b * kPitch + s4);
           sum[0] = sum[0] + x.x * y.x;
@@ -472,7 +445,7 @@ cudaError_t persistent_grid(long long num_sims, int num_decisions, int num_basis
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
     return err;
   }
-  const long long ntiles = (num_sims + kTileSims - 1) / kTileSims;
+  const long long ntiles = (num_sims + kThreads - 1) / kThreads;
   const long long grid = (long long)per_sm * sms;
   *num_blocks = (int)(ntiles < grid ? ntiles : grid);
   return cudaSuccess;
@@ -502,7 +475,7 @@ extern "C" int backward_update_launch(
     int num_decisions, int num_basis, int num_factors, const int* spot_pow, const int* fac_pow,
     int num_blocks, void* stream) {
   if (!valid_shape(num_sims, num_decisions, num_basis, num_factors) || num_grid < 2 ||
-      num_blocks < 1 || num_blocks > (num_sims + kTileSims - 1) / kTileSims) {
+      num_blocks < 1 || num_blocks > (num_sims + kThreads - 1) / kThreads) {
     return (int)cudaErrorInvalidValue;
   }
   const BasisDesc bd = make_basis_desc(num_basis, num_factors, spot_pow, fac_pow);

@@ -1,32 +1,26 @@
 #!/usr/bin/env python3
-"""Time the backward kernel K1 on one GPU: against an earlier build of it and
-against variants of its source, in turns; then trace one warm valuation.
+"""Time the backward kernel K1 on one GPU against an earlier build of it, in
+turns, then trace one warm valuation.
 
-    python3 tools/k1_turns.py [--parent DIR] [--variants a,b,...] [--no-trace]
+    python3 tools/k1_turns.py [--parent DIR] [--no-trace]
                               [--out chiprun_out/k1_turns.json]
 
 DIR (default ``storage_tpu_torch/_build/parent``, which git ignores) holds an
 earlier commit's ``backward_update.cu`` and ``storage_kernels.cuh``, written
 there with ``git show <commit>:storage_tpu_torch/ops/csrc/<name> > DIR/<name>``.
-It is built with nvcc and called through the PR-1 launcher's C interface (one
-partial per 128-sim block, ``block`` as its last int argument). Without DIR
-only the current kernel and its variants are timed.
+It is built with ``csrc.compile_library`` and called through the PR-1
+launcher's C interface (one partial per 128-sim block, ``block`` as its last
+int argument). Without DIR only the current kernel is timed.
 
-A variant (``VARIANTS``, ``ABLATIONS`` below) is the current kernel source
-with a few literal replacements, built into
-``storage_tpu_torch/_build/variants/<name>/``: another value of one of its
-constants, or a part taken out (an ablation, which computes wrong values;
-only its time is read).
-
-1. build   — the current library, the variants and the earlier kernel, all
-   builds started together.
+1. build   — the current library and the earlier kernel, built together.
 2. capture — ``chip_smoke.phase_capture``: one 1M-path valuation of the
    headline case recording one mid-horizon K1 launch; its D = 5 operands.
-3. turns   — at D = 3 and D = 5, each version in turn (earlier, current,
-   variants), then the same in reverse order; 20 launches each, CUDA events,
-   each including the wrapper's partial sums; each version's outputs against
-   the current kernel's. Ablations run at D = 3 only, in their own turns.
-4. trace   — ``torch.profiler`` over one more (warm) valuation: K1's device
+3. turns   — at D = 3 and D = 5: earlier, current, current, earlier; 20
+   launches each, CUDA events, each including the wrapper's partial sums;
+   the earlier kernel's outputs against the current one's.
+4. wall    — the headline valuation at 1M paths with each K1 as the engine's
+   ``backward_update``, in the same order; wall and stopwatch phases.
+5. trace   — ``torch.profiler`` over one more (warm) valuation: K1's device
    total, the other kernels launched between the first and the last K1
    launch (the backward induction's per-step glue: count and device time),
    the device's idle share of the traced wall, and the stopwatch phases.
@@ -39,8 +33,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -52,89 +44,16 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (the repo root's smoke script: capture and timing helpers)
 
 REPS = 20
-CSRC = ROOT / "storage_tpu_torch/ops/csrc"
-
-
-def _const(name, old, new):
-    return [(f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")]
-
-
-# name -> [(text in backward_update.cu, replacement)]; each text occurs once.
-VARIANTS = {  # other values of the kernel's constants
-    "m2": _const("kMinBlocks", 7, 2),
-    "m5": _const("kMinBlocks", 7, 5),
-    "d1": _const("kDUnroll", 3, 1),
-    "l1": _const("kLookahead", 2, 1),
-    "l3": _const("kLookahead", 2, 3),
-    "l4": _const("kLookahead", 2, 4),
-    "s2": _const("kSims", 1, 2) + _const("kMinBlocks", 7, 4),
-    "c8": _const("kChunk", 16, 8),
-    "c32": _const("kChunk", 16, 32) + _const("kMinBlocks", 7, 4),
-}
-ABLATIONS = {
-    # V_next rows not read: the winner's interpolation runs on its constants.
-    "no_v_loads": [
-        ("        nr0[i] = __ldg(reinterpret_cast<const float*>(\n"
-         "            vcol[i] + (size_t)__float_as_uint(k1.z) * op.row_bytes));\n"
-         "        nr1[i] = __ldg(reinterpret_cast<const float*>(\n"
-         "            vcol[i] + (size_t)__float_as_uint(k1.w) * op.row_bytes));",
-         "        nr0[i] = k1.x;\n        nr1[i] = k1.y;")],
-    # The fitted dot product reduced to one add per table quad.
-    "no_fit_dot": [
-        ("            fit[i] = __fmaf_rn(t.x, xn[i][4 * q], fit[i]);\n"
-         "            fit[i] = __fmaf_rn(t.y, xn[i][4 * q + 1], fit[i]);\n"
-         "            fit[i] = __fmaf_rn(t.z, xn[i][4 * q + 2], fit[i]);\n"
-         "            fit[i] = __fmaf_rn(t.w, xn[i][4 * q + 3], fit[i]);",
-         "            fit[i] = fit[i] + t.x;")],
-    # The table rows not read from shared memory (the dot runs on xn alone).
-    "no_table_loads": [
-        ("          const float4 t = T[q];",
-         "          const float4 t = make_float4(xn[0][0], xn[0][1], xn[0][2], xn[0][3]);")],
-    # The praw product skipped (graw stays).
-    "no_praw_product": [
-        ("    for (int s4 = 0; s4 < kTileSims; s4 += 4) {\n"
-         "      const float4 v = *reinterpret_cast",
-         "    for (int s4 = 0; s4 < 0; s4 += 4) {\n"
-         "      const float4 v = *reinterpret_cast")],
-}
-
-
-def _nvcc_library(out: Path, sources):
-    from storage_tpu_torch.ops import csrc
-
-    cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, "-shared", "-o", str(out), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{out} build failed:\n{proc.stdout}\n{proc.stderr}")
-
-
-def build_variant(name, edits):
-    """The kernel library built from the current sources with ``edits``."""
-    from storage_tpu_torch.ops import csrc
-
-    out = ROOT / "storage_tpu_torch/_build/variants" / name
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    for f in ("storage_kernels.cuh", "forward_sim.cu"):
-        shutil.copy(CSRC / f, out / f)
-    src = (CSRC / "backward_update.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to replace occurs {src.count(old)} times: "
-                               f"{old[:60]!r}")
-        src = src.replace(old, new)
-    (out / "backward_update.cu").write_text(src)
-    _nvcc_library(out / "lib.so", [out / "backward_update.cu", out / "forward_sim.cu"])
-    return csrc.load(out / "lib.so")
 
 
 def build_parent(parent: Path):
     """Build the earlier kernel from ``parent`` into a library; None if absent."""
-    src = parent / "backward_update.cu"
-    if not src.exists():
+    from storage_tpu_torch.ops import csrc
+
+    if not (parent / "backward_update.cu").exists():
         return None
     out = parent / "libparent_backward.so"
-    _nvcc_library(out, [src])
+    csrc.compile_library(parent, ("backward_update.cu",), out)
     lib = ctypes.CDLL(str(out))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.backward_update_launch.argtypes = [p] * 12 + [ll, i, i, i, i, p, p, i, p]
@@ -142,42 +61,28 @@ def build_parent(parent: Path):
     return lib
 
 
-def parent_update(lib, args, spec):
-    """The earlier wrapper: one launch, one partial per 128-sim block, summed."""
+def parent_update(lib):
+    """The earlier wrapper on library ``lib``: one launch, one partial per
+    128-sim block, summed; called like ``backward_update``."""
     import torch
     from storage_tpu_torch.ops.csrc import basis_arrays
 
-    f, fp, v_next, table, vbar, musd, gj, gw, scal = args
-    F, S = f.shape
-    G, D, B = v_next.shape[0], table.shape[0], spec.num_basis
-    nblk = -(-S // 128)
-    v_out = torch.empty_like(v_next)
-    graw_part = torch.empty((nblk, B + 1, B + 1), device=v_next.device)
-    praw_part = torch.empty((nblk, B + 1, G), device=v_next.device)
-    spot_pow, fac_pow = basis_arrays(spec)
-    err = lib.backward_update_launch(
-        f.data_ptr(), fp.data_ptr(), v_next.data_ptr(), v_out.data_ptr(), table.data_ptr(),
-        vbar.data_ptr(), musd.data_ptr(), gj.data_ptr(), gw.data_ptr(), scal.data_ptr(),
-        graw_part.data_ptr(), praw_part.data_ptr(), S, G, D, B, F, spot_pow, fac_pow, 128,
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent launch failed: cudaError {err}")
-    return v_out, graw_part.sum(dim=0), praw_part.sum(dim=0)
-
-
-def current_update(lib):
-    """The current wrapper on library ``lib``."""
-    from storage_tpu_torch.ops import backward, csrc
-
-    def run(args, spec):
-        saved = csrc._lib
-        csrc._lib = lib
-        backward._GRIDS.clear()
-        try:
-            return backward._backward_update_cuda(*args, spec=spec)
-        finally:
-            csrc._lib = saved
-            backward._GRIDS.clear()
+    def run(f, fp, v_next, table, vbar, musd, gj, gw, scal, spec):
+        F, S = f.shape
+        G, D, B = v_next.shape[0], table.shape[0], spec.num_basis
+        nblk = -(-S // 128)
+        v_out = torch.empty_like(v_next)
+        graw_part = torch.empty((nblk, B + 1, B + 1), device=v_next.device)
+        praw_part = torch.empty((nblk, B + 1, G), device=v_next.device)
+        spot_pow, fac_pow = basis_arrays(spec)
+        err = lib.backward_update_launch(
+            f.data_ptr(), fp.data_ptr(), v_next.data_ptr(), v_out.data_ptr(), table.data_ptr(),
+            vbar.data_ptr(), musd.data_ptr(), gj.data_ptr(), gw.data_ptr(), scal.data_ptr(),
+            graw_part.data_ptr(), praw_part.data_ptr(), S, G, D, B, F, spot_pow, fac_pow, 128,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent launch failed: cudaError {err}")
+        return v_out, graw_part.sum(dim=0), praw_part.sum(dim=0)
     return run
 
 
@@ -186,11 +91,11 @@ def turns(label, versions, args, spec):
     current kernel's."""
     import torch
 
-    ref = versions["current"](args, spec)
+    ref = versions["current"](*args, spec=spec)
     torch.cuda.synchronize()
     agreement = {}
     for name, fn in versions.items():
-        v, graw, praw = fn(args, spec)
+        v, graw, praw = fn(*args, spec=spec)
         torch.cuda.synchronize()
         agreement[name] = dict(
             v_max_abs_diff=float((v - ref[0]).abs().max()),
@@ -199,11 +104,43 @@ def turns(label, versions, args, spec):
     order = list(versions) + list(reversed(versions))
     times = {name: [] for name in versions}
     for name in order:
-        times[name].append(chip_smoke.cuda_ms(lambda: versions[name](args, spec), REPS))
+        times[name].append(chip_smoke.cuda_ms(lambda: versions[name](*args, spec=spec), REPS))
     for name in versions:
         print(f"[turns {label}] {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms "
               f"(mean {sum(times[name]) / 2:.4f}); against current: {agreement[name]}")
     return dict(order=order, ms=times, agreement=agreement)
+
+
+def wall_turns(versions):
+    """The headline valuation with each K1 as the engine's backward_update,
+    in turns (each version, then the reverse order)."""
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.engines import lsmc
+
+    real = lsmc.backward_update
+    order = list(versions) + list(reversed(versions))
+    runs = []
+    try:
+        for name in order:
+            phases = {}
+
+            def sink(sw, phases=phases):
+                phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
+
+            lsmc.backward_update = versions[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = chip_smoke.value_case(tt, chip_smoke.NUM_SIMS, chip_smoke.SEED, device="cuda",
+                                        profile_sink=sink)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append(dict(version=name, wall_s=wall, npv=res.npv, phases_s=phases))
+            print(f"[wall] {name}: {wall:.3f} s, NPV {res.npv:.4f}, phases "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    finally:
+        lsmc.backward_update = real
+    return runs
 
 
 def trace(num_sims, seed):
@@ -270,43 +207,36 @@ def trace(num_sims, seed):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=ROOT / "storage_tpu_torch/_build/parent")
-    ap.add_argument("--variants", default=",".join([*VARIANTS, *ABLATIONS]),
-                    help="comma-separated names of VARIANTS and ABLATIONS (may be empty)")
     ap.add_argument("--no-trace", action="store_true", help="skip the profiler trace")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out/k1_turns.json")
     opts = ap.parse_args()
-    edits = {**VARIANTS, **ABLATIONS}
-    chosen = [k for k in opts.variants.split(",") if k]
 
     import torch
-    from storage_tpu_torch.ops import csrc
+    from storage_tpu_torch.ops import backward, csrc
 
     card = chip_smoke.phase_device()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2 + len(chosen)) as pool:
+    with ThreadPoolExecutor(2) as pool:
         cur = pool.submit(csrc.build, True)
-        var = {k: pool.submit(build_variant, k, edits[k]) for k in chosen}
         par = pool.submit(build_parent, opts.parent)
-        lib, parent = csrc.load(cur.result()), par.result()
-        var_libs = {k: f.result() for k, f in var.items()}
+        cur.result()
+        parent = par.result()
+    csrc.kernels()
     print(f"[build] {time.perf_counter() - t0:.2f} s; parent kernel "
           f"{'built' if parent else 'absent'}")
     versions = {}
     if parent is not None:
-        versions["parent"] = lambda a, s: parent_update(parent, a, s)
-    versions["current"] = current_update(lib)
-    versions.update({k: current_update(v) for k, v in var_libs.items() if k in VARIANTS})
-    ablations = {"current": versions["current"]}
-    ablations.update({k: current_update(v) for k, v in var_libs.items() if k in ABLATIONS})
+        versions["parent"] = parent_update(parent)
+    versions["current"] = backward._backward_update_cuda
     captured = chip_smoke.phase_capture()
     args, kw = captured["bwd"]
     result = dict(card=card, device=torch.cuda.get_device_name(0))
     result["D3"] = turns("D=3", versions, args, kw["spec"])
     result["D5"] = turns("D=5", versions, chip_smoke.d5_args(captured), kw["spec"])
-    if len(ablations) > 1:
-        result["ablations_D3"] = turns("ablation D=3", ablations, args, kw["spec"])
     del captured, args
     torch.cuda.empty_cache()
+    if parent is not None:
+        result["wall"] = wall_turns(versions)
     if not opts.no_trace:
         result["trace"] = trace(chip_smoke.NUM_SIMS, chip_smoke.SEED)
     opts.out.parent.mkdir(parents=True, exist_ok=True)
