@@ -7,12 +7,12 @@ Phases, each printing its own line (every failure exits non-zero):
 
 1. device  — a CUDA device must be present; prints ``nvidia-smi``'s name and
    power limit, and the host's memory.
-2. build   — compiles both CUDA kernels from ``storage_tpu_torch/ops/csrc``.
+2. build   — compiles the three CUDA kernels from ``storage_tpu_torch/ops/csrc``.
 3. capture — one valuation of the headline case (``bench.py::build_case``:
    daily storage 2021-04-01 -> 2022-04-01, 3-factor seasonal model, 10-term
    basis, G = 100, 1,000,000 paths, seed 13), recording the inputs of one
-   mid-horizon backward kernel launch (and of its decision table) and of
-   the forward kernel launch.
+   mid-horizon backward kernel launch (and of its decision table), of the
+   forward kernel launch and of the two path-set simulations.
 4. K1 / K2 — each kernel against its plain PyTorch version on the recorded
    inputs (K1 at their full 1M sims, where each block of its persistent grid
    carries its partials across several tiles; K2 restricted to 65,536 sims),
@@ -25,9 +25,14 @@ Phases, each printing its own line (every failure exits non-zero):
    (65,536 sims; a grid the PR-1 kernel refused), and K2's variants:
    per-sim panels, D = 5, and POLY ratchets (cubics fitted through the
    recorded pillars).
+   K3 — the path kernel against its plain version, bit for bit, at the main
+   path's ``[341, 3, 1M]`` for both path-set keys, then at 100,001 sims x 37
+   steps in antithetic mode for 1 to 4 factors (an odd sim count, a ragged
+   last draw block); timed at the main path's shape beside ``k3_bound``.
 5. main    — launch counts reset, the valuation timed once more; the counts
-   must show both kernels ran, and NPV and intrinsic value must match the
-   JAX reference's record for this case and seed.
+   must show all three kernels ran (340 / 1 / 2 launches), and NPV and
+   intrinsic value must match the JAX reference's record for this case and
+   seed, and the NPV the port's own record.
 6. async   — the API's defaults through ``runtime.AsyncValuation``: per-sim
    panels and the chunked driver (progress, cancellation hook) at 1M paths;
    status, progress values, NPV, panel means, frame shapes and launch
@@ -58,6 +63,15 @@ CAPTURE_LAUNCH = 170  # the backward launch recorded: a mid-horizon period
 # intrinsic 40,976.
 REF_NPV, NPV_RTOL = 78_373.0, 1e-3
 REF_INTRINSIC, INTRINSIC_ATOL = 40_976.0, 5.0
+# The port's own record for this case and seed on an H100, from before the
+# path simulator was a kernel: the fused kernel draws the same paths bit for
+# bit, so the NPV moves only by near-tie decisions and reduction order.
+# A change to a kernel's rounding or reduction order may move it past this
+# bound while every kernel still holds its flip bounds against its plain
+# version: then the record is read anew from this run, and PERF.md
+# says which change moved it and by how much.
+PORT_NPV, PORT_NPV_RTOL = 78_377.3750, 1e-5
+PATH_SETS = 2  # path-set simulations (= path kernel launches) per valuation
 BASIS = "1 + x_st + x_sw + x_lt + s + x_st**2 + x_sw**2 + x_lt**2 + s**2 + s * x_st"
 # Kernel vs plain version (rounding differs: nvcc contracts a*b+c into FMA,
 # which flips near-tie decisions).  K1: V entries off by more than V_TOL
@@ -78,9 +92,14 @@ PANEL_RTOL, ASYNC_NPV_RTOL, PROFILE_RTOL, SIM_PV_RTOL = 1e-5, 1e-4, 1e-4, 1e-5
 NUM_SPANS, BACKWARD_SHARE = 20, 0.66  # the chunked driver's spans and progress weighting
 CANCEL_MEM_SLACK = 64 * 2**20  # bytes a cancelled run may leave allocated
 # Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s and
-# float32 flop/s outside the tensor cores. A bound is the larger of the two
-# times for the bytes a kernel must move and the flops it must do.
+# float32 flop/s outside the tensor cores. A bound is the larger of the
+# times for the bytes a kernel must move and the operations it must do.
+# Integer operations: an SM has 64 int32 lanes beside its 128 float32 lanes
+# (Hopper architecture white paper), and the float32 peak counts two flops
+# per lane and clock, so the int32 peak is a quarter of it in operations/s.
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
+SMALL_PATH_SIMS, SMALL_PATH_STEPS = 100_001, 37  # the path kernel's antithetic check
 LARGE_G, LARGE_G_EXTRA = 700, 1  # the random-input K1 phase: G = 700, D = 5
 
 
@@ -167,8 +186,9 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def _bound(nbytes, flops, int_ops=0):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(flops / PEAK_FP32_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3  # separate pipes
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -195,6 +215,18 @@ def k2_bound(n, S, F, B, D, panels):
     nbytes = 4 * (n * F * S + 3 * S + (24 * S * n if panels else 0))
     flops = n * S * (5 * B + 2 * F + 30 + D * (5 * (B + 1) + 23) + B + 8)
     return _bound(nbytes, flops)
+
+
+def k3_bound(n, S, F, draw_sims):
+    """(ms, "bytes" or "operations") for one K3 launch: the paths written
+    once; per drawn element (n F draw_sims of them) 75 integer operations
+    (threefry2x32's 20 rounds of add, rotate and xor, 11 key additions and
+    the final xor: 72; the counter and the mantissa: 3) and 29 flops (the
+    uniform map 4, the Giles polynomial 25 with log1pf counted as one; the
+    square root of the tail branch is not counted), and per path element
+    2F + 1 flops of the OU update."""
+    draws = n * F * draw_sims
+    return _bound(4 * n * F * S, 29 * draws + (2 * F + 1) * n * F * S, 75 * draws)
 
 
 def rel_err(a, b):
@@ -236,8 +268,16 @@ def phase_capture():
     from storage_tpu_torch.engines import lsmc
 
     captured = {}
+    from storage_tpu_torch import valuation
+
     real = (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs)
+    real_sim = valuation.simulate_factor_paths
     calls = {"bwd": 0, "table": 0}
+    captured["sim"] = []
+
+    def record_sim(coeffs, num_sims, **kw):  # once per path set: regression, valuation
+        captured["sim"].append((coeffs, num_sims, kw))
+        return real_sim(coeffs, num_sims, **kw)
 
     def record_bwd(*args, **kw):
         calls["bwd"] += 1
@@ -261,22 +301,20 @@ def phase_capture():
 
     lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs = (
         record_bwd, record_fwd, record_table, record_dev)
+    valuation.simulate_factor_paths = record_sim
     try:
         t0 = time.perf_counter()
         res = value_case(tt, NUM_SIMS, SEED, device="cuda")
         wall = time.perf_counter() - t0
     finally:
         lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs = real
-    check(all(k in captured for k in ("bwd", "fwd", "table", "dev")),
-          "capture run did not reach both kernels")
+        valuation.simulate_factor_paths = real_sim
+    check(all(k in captured for k in ("bwd", "fwd", "table", "dev"))
+          and len(captured["sim"]) == PATH_SETS, "capture run did not reach every kernel")
     captured["num_bwd"] = calls["bwd"]
     print(f"[capture] warm-up valuation {wall:.3f} s, NPV {res.npv:.4f}, "
           f"{calls['bwd']} backward launches")
     return captured
-
-
-def _slice_sims(t, n):
-    return t[..., :n].contiguous()
 
 
 def _check_backward(label, args, kw, min_tiles_per_block=1):
@@ -388,23 +426,33 @@ def phase_backward_large_grid(captured):
     return _check_backward(f"K1 backward_update G={G} D={D}", large, kw)
 
 
-def _check_forward(label, args, kw, panels=False):
-    """K2 against its plain version at COMPARE_SIMS sims (with per-sim panels
-    when ``panels``), then both timed at the recorded width (1M sims)."""
+def _check_forward(label, args, kw, panels=False, min_tiles_per_block=2):
+    """K2 against its plain version on ``args`` at their full width (with
+    per-sim panels when ``panels``), then both timed there.  Each block of the
+    kernel's persistent grid must walk at least ``min_tiles_per_block`` tiles,
+    so that the comparison covers what a block carries from one tile to the
+    next: partials accumulated in place, the hand-over of the staged records
+    and the inventories and PVs set anew."""
     import torch
-    from storage_tpu_torch.ops import forward
+    from storage_tpu_torch.ops import csrc, forward
 
     (factors, inv0, tables, mus, sds, pillars, scalars) = args
-    n = factors.shape[0]
+    n, F, S = factors.shape
+    spec = kw["spec"]
+    D = 3 + 2 * kw.get("extra_decisions", 0)
+    blocks = forward.grid_blocks(csrc.kernels(), factors.device, spec, S, kw["num_grid"],
+                                 spec.num_basis, F, pillars.shape[1], pillars.shape[2], D)
+    tiles_per_block = -(-S // forward.TILE_SIMS) // blocks  # the fewest a block walks
+    check(tiles_per_block >= min_tiles_per_block,
+          f"{label}: {S} sims give {blocks} blocks {tiles_per_block} tiles each, "
+          f"fewer than {min_tiles_per_block}")
     kw = dict(kw, panels=None)
-    small = (_slice_sims(factors, COMPARE_SIMS), _slice_sims(inv0, COMPARE_SIMS),
-             tables, mus, sds, pillars, scalars)
     out_k = out_r = None
     if panels:
-        out_k = torch.full((n, 6, COMPARE_SIMS), float("nan"), device=factors.device)
+        out_k = torch.full((n, 6, S), float("nan"), device=factors.device)
         out_r = torch.empty_like(out_k)
-    s_k, x_k, inv_k, pv_k = forward._forward_sim_cuda(*small, **dict(kw, panels=out_k))
-    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*small, **dict(kw, panels=out_r))
+    s_k, x_k, inv_k, pv_k = forward._forward_sim_cuda(*args, **dict(kw, panels=out_k))
+    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **dict(kw, panels=out_r))
     torch.cuda.synchronize()
     e_sums, e_xsums = rel_err(s_k, s_r), rel_err(x_k, x_r)
     pv_diff = (pv_k - pv_r).abs()
@@ -418,7 +466,7 @@ def _check_forward(label, args, kw, panels=False):
         flipped |= ((vol_k - vol_r).abs() > PANEL_RTOL * vol_r.abs().max()).any(dim=0)
     frac = float(flipped.float().mean())
     per_decision = frac / n
-    npv_effect = abs(float(pv_k.mean() - pv_r.mean())) / abs(float(pv_r.mean()))
+    npv_effect = abs(float(pv_k.double().mean() - pv_r.double().mean())) / abs(float(pv_r.mean()))
     max_ok = float(pv_diff[~flipped].max()) if bool((~flipped).any()) else 0.0
     if panels:
         check(bool(torch.isfinite(out_k).all()), f"{label}: the kernel left panel entries unwritten")
@@ -426,19 +474,16 @@ def _check_forward(label, args, kw, panels=False):
                       for f in range(6))
         panel_note = f", panels outside flips rel {e_panel:.2e}"
         check(e_panel <= PANEL_RTOL, f"{label} panels disagree: {e_panel:.2e} > {PANEL_RTOL}")
-        del out_k, out_r
-        full = torch.empty((n, 6, factors.shape[2]), device=factors.device)
-        kw = dict(kw, panels=full)
+        del out_r, vol_k, vol_r
+        kw = dict(kw, panels=out_k)
     ms = cuda_ms(lambda: forward._forward_sim_cuda(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: forward.forward_sim_reference(*args, **kw), 1)
-    D = 3 + 2 * kw.get("extra_decisions", 0)
-    bound_ms, bound_by = k2_bound(n, factors.shape[2], factors.shape[1], kw["spec"].num_basis, D,
-                                  panels)
-    print(f"[{label}] {COMPARE_SIMS} sims x {n} steps: sums rel "
+    bound_ms, bound_by = k2_bound(n, S, F, spec.num_basis, D, panels)
+    print(f"[{label}] {S} sims x {n} steps, {blocks} blocks of >= {tiles_per_block} tiles: sums rel "
           f"{e_sums:.2e}, xsums rel {e_xsums:.2e}, pv max|diff| {float(pv_diff.max()):.3e} "
           f"(outside flips {max_ok:.3e}), flipped paths {int(flipped.sum())} = {frac:.2e} "
           f"= {per_decision:.2e} per decision, NPV effect {npv_effect:.2e}{panel_note}; "
-          f"{factors.shape[2]} sims: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
     check(per_decision <= FLIP_FRAC_MAX / 10,
           f"{label} flips {per_decision:.2e} per decision > {FLIP_FRAC_MAX / 10}")
@@ -485,6 +530,60 @@ def phase_forward_variants(captured):
     }
 
 
+def _compare_paths(label, coeffs, num_sims, key, antithetic):
+    """The path kernel against its plain version on one case, bit for bit;
+    returns max |diff|."""
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    got = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda")
+    ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, "cuda")
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"{label}: paths {tuple(got.shape)} not finite or not {tuple(ref.shape)}")
+    differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    max_err = float((got - ref).abs().max())
+    print(f"[{label}] {tuple(got.shape)}{' antithetic' if antithetic else ''}: {differ} of "
+          f"{got.numel()} elements differ from the plain version, max|diff| {max_err:.3e}")
+    check(differ == 0, f"{label}: {differ} path elements differ from the plain version")
+    return max_err
+
+
+def phase_path_sim(captured):
+    """K3 against its plain version (tolerance: none, every path element bit
+    for bit) at the main path's shape for both path-set keys and at a small
+    antithetic shape for every factor count; then timed at the main path's."""
+    import numpy as np
+    from storage_tpu_torch.models import simulation
+
+    max_err = 0.0
+    for (coeffs, num_sims, kw), name in zip(captured["sim"], ("regression", "valuation")):
+        check(not kw.get("antithetic"), "the main path is not antithetic")
+        max_err = max(max_err, _compare_paths(f"K3 path_sim {name} set", coeffs, num_sims,
+                                              kw["key"], False))
+    rng = np.random.default_rng(SEED)
+    for F in (1, 2, 3, 4):
+        n = SMALL_PATH_STEPS
+        small = simulation.SimCoefficients(
+            decay=rng.uniform(0.9, 1.0, (n, F)), chol=np.tril(rng.uniform(-0.2, 0.2, (n, F, F))),
+            vols=np.ones((n, F)), log_fwd_drift=np.zeros(n))
+        max_err = max(max_err, _compare_paths(f"K3 path_sim F={F}", small, SMALL_PATH_SIMS,
+                                              simulation.prng_key(SEED + F), True))
+    coeffs, num_sims, kw = captured["sim"][0]
+    n, F = coeffs.decay.shape
+    ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
+        coeffs, num_sims, kw["key"], False, "cuda"), 5)
+    plain_ms = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
+        coeffs, num_sims, kw["key"], False, "cuda"), 1)
+    bound_ms, bound_by = k3_bound(n, num_sims, F, num_sims)
+    print(f"[K3 path_sim] {n} steps x {F} factors x {num_sims} sims: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+    # library_ms: no single torch call draws threefry normals and runs the OU
+    # recursion (torch's generators are Philox and give other numbers).
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share=bound_ms / ms, library_ms=None)
+
+
 def phase_main():
     import numpy as np
     import torch
@@ -518,10 +617,14 @@ def phase_main():
     check(counts["backward_update"] >= n_steps - 1,
           f"backward kernel ran {counts['backward_update']} times for {n_steps} steps")
     check(counts["forward_sim"] >= 1, "forward kernel never ran")
+    check(counts["path_sim"] == PATH_SETS,
+          f"path kernel ran {counts['path_sim']} times for {PATH_SETS} path sets")
     check(abs(res.intrinsic_npv - REF_INTRINSIC) <= INTRINSIC_ATOL,
           f"intrinsic {res.intrinsic_npv} outside {REF_INTRINSIC} +- {INTRINSIC_ATOL}")
     check(abs(res.npv - REF_NPV) <= NPV_RTOL * REF_NPV,
           f"NPV {res.npv} outside {REF_NPV} +- {NPV_RTOL:.0e}")
+    check(abs(res.npv - PORT_NPV) <= PORT_NPV_RTOL * PORT_NPV,
+          f"NPV {res.npv} outside the port's record {PORT_NPV} +- {PORT_NPV_RTOL:.0e}")
     return counts, res.npv
 
 
@@ -599,8 +702,8 @@ def phase_async(main_npv):
     check(all(shapes[name] == (n_steps + 1, NUM_SIMS) for name in frames)
           and shapes["sim_spot_regress"] == shapes["sim_spot_valuation"] == (n_steps, NUM_SIMS),
           f"frame shapes {shapes}")
-    check(counts == {"backward_update": n_steps - 1, "forward_sim": NUM_SPANS},
-          f"async launches {counts}")
+    check(counts == {"backward_update": n_steps - 1, "forward_sim": NUM_SPANS,
+                     "path_sim": PATH_SETS}, f"async launches {counts}")
     return counts
 
 
@@ -656,7 +759,7 @@ def phase_options(main_npv):
           f"launches {counts}")
     check(np.isfinite(res.npv) and np.isfinite(res.deltas.to_numpy()).all(),
           "options: NPV or deltas not finite")
-    check(counts == {"backward_update": n_steps - 1, "forward_sim": 1},
+    check(counts == {"backward_update": n_steps - 1, "forward_sim": 1, "path_sim": PATH_SETS},
           f"options launches {counts}")
     return counts
 
@@ -675,6 +778,7 @@ def main() -> int:
         k1_large = phase_backward_large_grid(captured)
         k2 = phase_forward(captured)
         k2_variants = phase_forward_variants(captured)
+        k3 = phase_path_sim(captured)
         del captured
         gc.collect()
         torch.cuda.empty_cache()
@@ -703,6 +807,11 @@ def main() -> int:
              launches=counts["forward_sim"], **k2,
              launches_by_path={p: c["forward_sim"] for p, c in paths.items()},
              variants=k2_variants),
+        dict(name="path_sim", route="cuda",
+             source="storage_tpu_torch/ops/csrc/path_sim.cu",
+             replaces="storage_tpu/models/simulation.py:264 (XLA code, no Pallas kernel)",
+             launches=counts["path_sim"], **k3,
+             launches_by_path={p: c["path_sim"] for p, c in paths.items()}),
     ]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -15,13 +15,19 @@ per-step coefficients are precomputed on the host in float64.
 
 Random numbers: the JAX package draws with ``jax.random`` (threefry2x32 in
 its "partitionable" bit layout, normals as ``sqrt(2) * erf_inv(u)``).  This
-module reproduces that generator with integer tensor ops, so that the port
-draws the same paths from the same seed: threefry2x32 in int64 arithmetic
-masked to 32 bits (unsigned 32-bit shifts are not fully supported on CUDA
-tensors), the same ``fold_in`` block keying, the same bits-to-uniform map and
-XLA's float32 ``erf_inv`` polynomial (``torch.erfinv`` differs by ~2e-5).
-Normals are generated one 16-step draw block at a time, which bounds the
-integer temporaries at ``[16, F, S]``.
+module reproduces that generator, so that the port draws the same paths from
+the same seed: the same ``fold_in`` block keying, the same bits-to-uniform
+map and XLA's float32 ``erf_inv`` polynomial (``torch.erfinv`` differs by
+~2e-5).
+
+:func:`simulate_factor_paths` sends a CUDA device to one fused kernel
+(``ops/csrc/path_sim.cu``: hash, normal map and OU update per sim in
+registers, native uint32 arithmetic, nothing but the paths written to device
+memory) and the CPU to :func:`simulate_factor_paths_reference`, the plain
+PyTorch version: threefry2x32 in int64 tensor arithmetic masked to 32 bits,
+normals one 16-step draw block at a time (integer temporaries of
+``[16, F, S]``).  The kernel rounds every step as the plain version's torch
+ops do, so the two give the same paths bit for bit on one card.
 """
 from __future__ import annotations
 
@@ -225,23 +231,15 @@ def _block_normals(key, b0: int, num_factors: int, num_sims: int, antithetic: bo
     return normal(k, (_DRAW_BLOCK, num_factors, num_sims), device)
 
 
-def simulate_factor_paths(
+def simulate_factor_paths_reference(
     coeffs: SimCoefficients,
     num_sims: int,
-    seed: Optional[int] = None,
+    key: Tuple[int, int],
     antithetic: bool = False,
-    key: Optional[Tuple[int, int]] = None,
     device=None,
 ) -> torch.Tensor:
-    """Simulate Markov factor state paths ``[n, F, S]`` (float32) on ``device``.
-
-    Draws are those of the JAX package for the same threefry key: the
-    default key is ``prng_key(seed)``.
-    """
-    if key is None:
-        if seed is None:
-            seed = np.random.SeedSequence().entropy % (2**63)
-        key = prng_key(int(seed))
+    """Plain PyTorch version of the path kernel: factor paths ``[n, F, S]``
+    (float32) on ``device`` for the threefry ``key``."""
     n, num_factors = coeffs.decay.shape
     decay = torch.as_tensor(coeffs.decay, dtype=torch.float32).to(device)
     chol = torch.as_tensor(coeffs.chol, dtype=torch.float32).to(device)
@@ -260,6 +258,63 @@ def simulate_factor_paths(
             out[k] = y
         del z_b
     return out
+
+
+def _simulate_factor_paths_cuda(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
+                                antithetic: bool, device) -> torch.Tensor:
+    """Launch ``path_sim_kernel`` (CUDA devices only): one thread per drawn
+    sim, one launch per path set."""
+    from ..ops import count_launch
+    from ..ops.csrc import check_launch, kernels
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the path kernel needs a CUDA device (got {device}); it never runs "
+                         "on the CPU")
+    n, num_factors = coeffs.decay.shape
+    out = torch.empty((n, num_factors, num_sims), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    draw_sims = (num_sims + 1) // 2 if antithetic else num_sims
+    if _DRAW_BLOCK * num_factors * draw_sims >= 2**32:
+        raise ValueError("random_bits supports fewer than 2**32 elements.")
+    # One key per 16-step draw block, hashed here (n / 16 of them); the
+    # per-step coefficients as rows [decay (F) | chol (F x F, row-major)].
+    keys = np.array([fold_in(key, b0) for b0 in range(0, n, _DRAW_BLOCK)], dtype=np.uint32)
+    coef = np.concatenate([coeffs.decay, coeffs.chol.reshape(n, -1)], axis=1).astype(np.float32)
+    keys_dev = torch.from_numpy(keys.view(np.int32)).to(device)
+    coef_dev = torch.from_numpy(coef).to(device)
+    with torch.cuda.device(device):
+        err = kernels().path_sim_launch(
+            keys_dev.data_ptr(), coef_dev.data_ptr(), out.data_ptr(), num_sims, draw_sims, n,
+            num_factors, torch.cuda.current_stream(device).cuda_stream)
+    check_launch("path_sim", err)
+    count_launch("path_sim")
+    return out
+
+
+def simulate_factor_paths(
+    coeffs: SimCoefficients,
+    num_sims: int,
+    seed: Optional[int] = None,
+    antithetic: bool = False,
+    key: Optional[Tuple[int, int]] = None,
+    device=None,
+) -> torch.Tensor:
+    """Simulate Markov factor state paths ``[n, F, S]`` (float32) on ``device``.
+
+    Draws are those of the JAX package for the same threefry key: the
+    default key is ``prng_key(seed)``.  A CUDA device goes to the kernel; the
+    CPU (``device`` None or ``"cpu"``) to
+    :func:`simulate_factor_paths_reference`.
+    """
+    if key is None:
+        if seed is None:
+            seed = np.random.SeedSequence().entropy % (2**63)
+        key = prng_key(int(seed))
+    if device is None or torch.device(device).type == "cpu":
+        return simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, device)
+    return _simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, device)
 
 
 def spots_from_factor_paths(factors: torch.Tensor, vols: torch.Tensor,

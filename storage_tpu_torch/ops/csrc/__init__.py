@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Optional
 
 _SRC_DIR = Path(__file__).resolve().parent
-_SOURCES = ("backward_update.cu", "forward_sim.cu")
+_SOURCES = ("backward_update.cu", "forward_sim.cu", "path_sim.cu")
 _HEADERS = ("storage_kernels.cuh",)
 BUILD_DIR = _SRC_DIR.parent.parent / "_build"
 NVCC_FLAGS = (
@@ -128,8 +128,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.backward_update_launch.restype = i
     lib.backward_update_blocks.argtypes = [ll, i, i]
     lib.backward_update_blocks.restype = i
-    lib.forward_sim_launch.argtypes = [p] * 13 + [ll, i, i, i, i, i, i, i, i, p, p, i, p]
+    lib.forward_sim_launch.argtypes = [p] * 8 + [ll] + [i] * 8 + [p, p, i, i, p]
     lib.forward_sim_launch.restype = i
+    lib.forward_sim_blocks.argtypes = [ll] + [i] * 6 + [p, p]
+    lib.forward_sim_blocks.restype = i
+    lib.forward_sim_row_pitch.argtypes = [i]
+    lib.forward_sim_row_pitch.restype = i
+    lib.path_sim_launch.argtypes = [p, p, p, ll, ll, i, i, p]
+    lib.path_sim_launch.restype = i
     lib.storage_kernels_error_string.argtypes = [i]
     lib.storage_kernels_error_string.restype = ctypes.c_char_p
 

@@ -91,15 +91,6 @@ constexpr int kAPerThread = (kMaxBasis + 1 + kAGroups - 1) / kAGroups;
 static_assert(kThreads % kChunk == 0, "a chunk must divide the block");
 static_assert(kMaxBasis + 2 <= 20, "a fitted row is at most five float4s");
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
 struct Operands {
   const float* f_cur;   // [F, S] factors of this period
   const float* f_prev;  // [F, S] factors of the previous period

@@ -1,4 +1,5 @@
-// Shared device math of the LSMC kernels (backward_update.cu, forward_sim.cu).
+// Shared device math of the LSMC kernels (backward_update.cu, forward_sim.cu;
+// path_sim.cu takes the constants).
 //
 // Every function here is the float32 arithmetic of a torch function of the
 // package, statement for statement, so that a kernel and its plain PyTorch
@@ -29,12 +30,21 @@ constexpr int kInterpLinear = 0;
 constexpr int kInterpStep = 1;
 constexpr int kInterpPoly = 2;
 
+constexpr int kMaxVars = kMaxFactors + 1;  // a column's variables: the spot, then the factors
+
 // Monomial basis: column b = spot^spot_pow[b] * prod_f x_f^fac_pow[b][f].
+// The same basis as a table of powers (forward_sim.cu): variable v (0 the
+// spot, 1 + f factor f) has its powers 1..max_pow[v] in slots pow_off[v] + p;
+// slot[b][v] is the slot of column b's power of v, 0 for a power of 0.
 struct BasisDesc {
   int num_basis;
   int num_factors;
   int spot_pow[kMaxBasis];
   int fac_pow[kMaxBasis * kMaxFactors];
+  int max_pow[kMaxVars];
+  int pow_off[kMaxVars];
+  int slot[kMaxBasis * kMaxVars];
+  int num_slots;  // 1 + the sum of max_pow (slot 0 is not used)
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -44,6 +54,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   }
   return v;
 }
+
+// Asynchronous copies from global into shared memory (4 or 16 bytes, both
+// addresses aligned to the size), grouped by commit and awaited together.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // x**p for a small positive integer p as the multiply chain x*x*...*x.
 __device__ __forceinline__ float ipow(float x, int p) {
@@ -80,12 +106,12 @@ __device__ __forceinline__ void design_row(const BasisDesc& bd, float spot, cons
   }
 }
 
-// Lower index j in [0, G-2] and upper weight w of x on linspace(lo, hi, G).
-__device__ __forceinline__ void frac_index(float x, float lo, float hi, int num_grid, int* j,
-                                           float* w) {
-  const float span = hi - lo;
-  const float step = span / (float)(num_grid - 1);
-  const float t = span > 0.0f ? (x - lo) / step : 0.0f;
+// Lower index j in [0, G-2] and upper weight w of x on linspace(lo, hi, G),
+// given its spacing step = (hi - lo) / (G - 1) and whether hi - lo is
+// positive (both the same for every sim of a step).
+__device__ __forceinline__ void frac_index(float x, float lo, float step, bool positive,
+                                           int num_grid, int* j, float* w) {
+  const float t = positive ? (x - lo) / step : 0.0f;
   const float jf = fminf(fmaxf(floorf(t), 0.0f), (float)(num_grid - 2));
   *j = (int)jf;
   *w = fminf(fmaxf(t - jf, 0.0f), 1.0f);
@@ -153,6 +179,19 @@ inline BasisDesc make_basis_desc(int num_basis, int num_factors, const int* spot
   for (int b = 0; b < num_basis; ++b) {
     bd.spot_pow[b] = spot_pow[b];
     for (int f = 0; f < num_factors; ++f) bd.fac_pow[b * kMaxFactors + f] = fac_pow[b * num_factors + f];
+  }
+  bd.num_slots = 1;
+  for (int v = 0; v <= num_factors; ++v) {
+    for (int b = 0; b < num_basis; ++b) {
+      const int p = v == 0 ? spot_pow[b] : fac_pow[b * num_factors + v - 1];
+      if (p > bd.max_pow[v]) bd.max_pow[v] = p;
+    }
+    bd.pow_off[v] = bd.num_slots - 1;
+    bd.num_slots += bd.max_pow[v];
+    for (int b = 0; b < num_basis; ++b) {
+      const int p = v == 0 ? spot_pow[b] : fac_pow[b * num_factors + v - 1];
+      bd.slot[b * kMaxVars + v] = p > 0 ? bd.pow_off[v] + p : 0;
+    }
   }
   return bd;
 }

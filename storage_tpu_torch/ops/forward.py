@@ -23,7 +23,6 @@ from .interp import fractional_index
 from .ratchets import interp_rates
 from .regression import BasisSpec, design_columns, spot_from_factors
 
-FORWARD_BLOCK_SIMS = 256  # threads (= sims) per block of the CUDA kernel
 NUM_SUMS = 7  # inventory, volume, consumed, loss, net volume, immediate PV, net x spot
 
 # Packed per-step scalar layout (column indices into scalars[n, :]); the CUDA
@@ -106,6 +105,36 @@ def forward_sim_reference(
     return torch.stack(sums), torch.stack(xsums), inv, pv
 
 
+TILE_SIMS = 256  # sims of one tile of the kernel's persistent grid (its ``kTile``)
+
+
+def grid_blocks(lib, device, spec: BasisSpec, *shape) -> int:
+    """Blocks (= partials) of the kernel's persistent grid for ``shape`` (the
+    integer arguments of ``forward_sim_blocks``) and the basis ``spec``: an
+    occupancy query, asked on every launch."""
+    from .csrc import basis_arrays, check_launch
+
+    with torch.cuda.device(device):
+        n = lib.forward_sim_blocks(*shape, *basis_arrays(spec))
+    if n <= 0:
+        check_launch("forward_sim", -n)
+    return n
+
+
+def pack_records(tables, mus, sds, pillars, scalars, pitch: int) -> torch.Tensor:
+    """The kernel's per-step records ``[n, RL]``: the table ``[G, B+1]`` with
+    rows zero-padded to ``pitch`` floats (whole float4s; the kernel's
+    ``forward_sim_row_pitch`` says how many for a basis), then the
+    ``(mu_b, sd_b)`` pairs, the pillars and the scalars, zero-padded to a
+    multiple of 4 floats (the launcher checks RL against its own count)."""
+    n, B1, G = tables.shape
+    table_rows = torch.nn.functional.pad(tables.transpose(1, 2), (0, pitch - B1))  # [n, G, pitch]
+    musd = torch.stack([mus, sds], dim=2)  # [n, B, 2]
+    parts = [table_rows.reshape(n, -1), musd.reshape(n, -1), pillars.reshape(n, -1), scalars]
+    pad = -sum(p.shape[1] for p in parts) % 4
+    return torch.cat(parts + [tables.new_zeros((n, pad))], dim=1).contiguous()
+
+
 def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: BasisSpec,
                       interp_kind: int, num_grid: int, extra_decisions: int = 0,
                       panels: Optional[torch.Tensor] = None):
@@ -128,24 +157,25 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
     lib = kernels()
     dev = factors.device
     weights = torch.tensor(decision_weights(extra_decisions), dtype=torch.float32, device=dev)
-    tables_gb = tables.transpose(1, 2).contiguous()  # [n, G, B+1]: row j contiguous
-    nblk = -(-S // FORWARD_BLOCK_SIMS)
-    sums_part = torch.empty((nblk, n, NUM_SUMS), dtype=torch.float32, device=dev)
-    xsums_part = torch.empty((nblk, n, B + 1), dtype=torch.float32, device=dev)
+    D = weights.shape[1]
+    records = pack_records(tables, mus, sds, pillars, scalars, lib.forward_sim_row_pitch(B))
+    nblk = grid_blocks(lib, dev, spec, S, G, B, F, P, C, D)
+    # One [n, 7 + B+1] partial per block: the 7 sums' columns, then the design row's.
+    partials = torch.empty((nblk, n, NUM_SUMS + B + 1), dtype=torch.float32, device=dev)
     inv_out = torch.empty((S,), dtype=torch.float32, device=dev)
     pv_out = torch.empty((S,), dtype=torch.float32, device=dev)
     spot_pow, fac_pow = basis_arrays(spec)
     err = lib.forward_sim_launch(
-        factors.data_ptr(), inv0.data_ptr(), tables_gb.data_ptr(), mus.data_ptr(),
-        sds.data_ptr(), pillars.data_ptr(), scalars.data_ptr(), weights.data_ptr(),
-        sums_part.data_ptr(), xsums_part.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
+        factors.data_ptr(), inv0.data_ptr(), records.data_ptr(), weights.data_ptr(),
+        partials.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
         None if panels is None else panels.data_ptr(),
-        S, n, G, P, C, int(interp_kind), weights.shape[1], B, F, spot_pow, fac_pow,
-        FORWARD_BLOCK_SIMS, torch.cuda.current_stream(dev).cuda_stream,
+        S, n, G, P, C, int(interp_kind), D, B, F, spot_pow, fac_pow, records.shape[1],
+        nblk, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch("forward_sim", err)
     count_launch("forward_sim")
-    return sums_part.sum(dim=0), xsums_part.sum(dim=0), inv_out, pv_out
+    sums = partials.sum(dim=0)  # a fixed-order reduction over the blocks
+    return sums[:, :NUM_SUMS], sums[:, NUM_SUMS:], inv_out, pv_out
 
 
 def forward_sim(factors, inv0, tables, mus, sds, pillars, scalars, spec: BasisSpec,

@@ -10,7 +10,10 @@ ragged tail blocks, other basis and grid widths (the backward kernel up to
 G = 700 at D = 5, and bit-identical reruns), STEP ratchets,
 single-pillar (constant-rate) tables, and the forward kernel's options —
 per-sim panels, D = 7 decisions (``extra_decisions=2``) and POLY ratchets
-whose pillar tables are zero-padded to a common height.  Rounding differs
+whose pillar tables are zero-padded to a common height, sim counts below
+and across its 256-sim tiles, a span of one step, and bit-identical reruns.  The path
+kernel must equal its plain version bit for bit (it rounds every step as
+the torch ops do).  Rounding differs
 between a kernel and its plain version (FMA contraction), so near-tie
 decisions may flip; flips are counted and bounded like ``chip_smoke.py``
 bounds them (<= 1e-4 of the paths per decision; panels and final
@@ -22,8 +25,9 @@ import pytest
 import torch
 
 from storage_tpu_torch import launch_counts, reset_launch_counts
+from storage_tpu_torch.models import simulation
 from storage_tpu_torch.ops import backward, forward
-from storage_tpu_torch.ops.csrc import KernelLaunchError
+from storage_tpu_torch.ops.csrc import KernelLaunchError, kernels
 from storage_tpu_torch.ops.ratchets import INTERP_POLY, pad_pillars
 from storage_tpu_torch.ops.regression import BasisSpec
 
@@ -38,6 +42,9 @@ SPEC_SMALL = BasisSpec((0, 1, 0), ((0, 0, 0), (0, 0, 0), (1, 0, 0)))
 SPEC_16 = BasisSpec(tuple(b % 3 for b in range(16)),
                     tuple(((b // 3) % 2, (b // 6) % 2, b % 2) for b in range(16)))
 SPEC_13 = BasisSpec(SPEC_16.spot_powers[:13], SPEC_16.factor_powers[:13])
+# Powers of 3 and 4: the forward kernel keeps those in a shared-memory table
+# (first and second powers stay in registers).
+SPEC_CUBIC = BasisSpec((0, 3, 1, 4, 0), ((0, 0, 0), (1, 0, 0), (3, 0, 2), (0, 4, 0), (2, 3, 1)))
 
 
 @pytest.fixture
@@ -205,6 +212,119 @@ def test_forward_sim_options_match_plain(cuda, S, extra, interp_kind):
     assert ((inv_k[ok] - inv_r[ok]).abs().max() / inv_r.abs().max()).item() <= 1e-5
     assert ((x_k - x_r).abs().max() / x_r.abs().max()).item() <= 1e-4
     assert ((s_k - s_r).abs().max() / s_r.abs().max()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("S,n", [(3001, 30), (515, 1), (128, 7), (257, 3), (811_011, 5)],
+                         ids=["ragged", "one-step", "half-tile", "tile-plus-one",
+                              "tiles-per-block"])
+def test_forward_sim_tiles_match_plain(cuda, S, n):
+    """Sim counts that are no multiple of the kernel's tile (128 threads x 2
+    sims per thread), a span of one step, fewer sims than one tile (every
+    thread's second sim is a shadow), one sim past a tile, and more tiles than
+    the persistent grid has blocks (a block carries its partials, staged
+    records and sims' state from one tile to the next)."""
+    G = 23
+    args = _forward_inputs(SPEC_3F, S, n, G, 4, seed=S + n, device=cuda)
+    kw = dict(spec=SPEC_3F, interp_kind=0, num_grid=G)
+    if S > 100_000:
+        blocks = forward.grid_blocks(kernels(), cuda, SPEC_3F, S, G,
+                                     SPEC_3F.num_basis, 3, 4, 3, 3)
+        assert -(-S // forward.TILE_SIMS) // blocks >= 2
+    panels_k = torch.full((n, 6, S), float("nan"), device=cuda)
+    panels_r = torch.empty_like(panels_k)
+    s_k, x_k, inv_k, pv_k = forward.forward_sim(*args, **kw, panels=panels_k)
+    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **kw, panels=panels_r)
+    torch.cuda.synchronize()
+    assert torch.isfinite(panels_k).all()
+    flipped = ((panels_k[:, 1] - panels_r[:, 1]).abs() > 1e-5 * panels_r[:, 1].abs().max()
+               ).any(dim=0)
+    assert flipped.float().mean().item() / n <= 1e-4
+    ok = ~flipped
+    for f in range(6):
+        a, b = panels_k[:, f, ok], panels_r[:, f, ok]
+        assert ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() <= 1e-5, f
+    assert ((inv_k[ok] - inv_r[ok]).abs().max() / inv_r.abs().max()).item() <= 1e-5
+    assert ((pv_k[ok] - pv_r[ok]).abs().max() / pv_r.abs().max()).item() <= 1e-5
+    assert ((x_k - x_r).abs().max() / x_r.abs().max()).item() <= 1e-4
+    assert ((s_k - s_r).abs().max() / s_r.abs().max()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("spec", [SPEC_SMALL, SPEC_13, SPEC_16, SPEC_CUBIC],
+                         ids=["B3", "B13", "B16", "cubic"])
+def test_forward_sim_basis_widths_match_plain(cuda, spec):
+    """Table rows of one, four and five float4s (three on the main path), and
+    a basis with third and fourth powers."""
+    S, n, G = 2049, 12, 31
+    args = _forward_inputs(spec, S, n, G, 4, seed=spec.num_basis, device=cuda)
+    kw = dict(spec=spec, interp_kind=0, num_grid=G)
+    s_k, x_k, inv_k, pv_k = forward.forward_sim(*args, **kw)
+    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **kw)
+    torch.cuda.synchronize()
+    flipped = (pv_k - pv_r).abs() > 1e-4 * pv_r.abs().clamp_min(1e-6 * pv_r.abs().max().item())
+    assert flipped.float().mean().item() / n <= 1e-4
+    assert ((x_k - x_r).abs().max() / x_r.abs().max()).item() <= 1e-4
+    assert ((s_k - s_r).abs().max() / s_r.abs().max()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("panels", [False, True], ids=["sums", "panels"])
+def test_forward_sim_is_deterministic(cuda, panels):
+    """Two launches on the same inputs give bit-identical outputs (several
+    tiles per block of the persistent grid, so partials accumulate in place)."""
+    S, n, G = 600_011, 9, 23
+    args = _forward_inputs(SPEC_3F, S, n, G, 4, seed=11, device=cuda)
+    kw = dict(spec=SPEC_3F, interp_kind=0, num_grid=G)
+    outs = []
+    for _ in range(2):
+        p = torch.empty((n, 6, S), device=cuda) if panels else None
+        outs.append(forward.forward_sim(*args, **kw, panels=p) + ((p,) if panels else ()))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    # against the plain version: the sums of a multi-tile, multi-block launch
+    s_r, x_r, _, _ = forward.forward_sim_reference(*args, **kw)
+    assert ((outs[0][0] - s_r).abs().max() / s_r.abs().max()).item() <= 1e-3
+    assert ((outs[0][1] - x_r).abs().max() / x_r.abs().max()).item() <= 1e-4
+
+
+def _sim_coefficients(num_factors, n):
+    rng = np.random.default_rng(100 * num_factors + n)
+    corrs = np.array([[1.0, 0.6, 0.3, 0.1], [0.6, 1.0, 0.4, 0.2], [0.3, 0.4, 1.0, 0.3],
+                      [0.1, 0.2, 0.3, 1.0]])[:num_factors, :num_factors]
+    times = np.cumsum(rng.uniform(0.5, 3.0, n)) / 365.0
+    return simulation.sim_coefficients(
+        np.array([0.0, 2.5, 16.2, 40.0])[:num_factors], rng.uniform(0.1, 0.9, (n, num_factors)),
+        corrs, times, rng.uniform(10.0, 20.0, n))
+
+
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
+@pytest.mark.parametrize("n", [5, 16, 37])
+@pytest.mark.parametrize("num_factors", [1, 2, 3, 4])
+def test_path_sim_equals_plain(cuda, num_factors, n, antithetic):
+    """The path kernel against its plain version, bit for bit: horizons
+    shorter than, equal to and past whole 16-step draw blocks, an odd sim
+    count (a ragged thread block, an unpaired antithetic sim)."""
+    num_sims = 10_001
+    coeffs = _sim_coefficients(num_factors, n)
+    key = simulation.fold_in(simulation.prng_key(12), 1)
+    reset_launch_counts()
+    got = simulation.simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
+                                           device=cuda)
+    assert launch_counts()["path_sim"] == 1
+    ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, cuda)
+    again = simulation.simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
+                                             device=cuda)
+    torch.cuda.synchronize()
+    assert got.shape == (n, num_factors, num_sims)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, again)
+
+
+def test_path_sim_refuses_five_factors(cuda):
+    n, F = 4, 5
+    coeffs = simulation.SimCoefficients(np.ones((n, F)), np.zeros((n, F, F)), np.ones((n, F)),
+                                        np.zeros(n))
+    with pytest.raises(KernelLaunchError):
+        simulation.simulate_factor_paths(coeffs, 64, seed=1, device=cuda)
 
 
 def test_launch_refused_raises(cuda):

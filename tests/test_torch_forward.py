@@ -32,6 +32,7 @@ from storage_tpu.ops.regression import basis_spec  # noqa: E402
 from storage_tpu.utils.basis import THREE_FACTOR_SEASONAL_ALIASES, as_monomials  # noqa: E402
 import storage_tpu_torch.engines.lsmc as tl  # noqa: E402
 from storage_tpu_torch.interop import context_from_numpy, lsmc_policy_from_numpy  # noqa: E402
+from storage_tpu_torch.ops.forward import pack_records  # noqa: E402
 from storage_tpu_torch.ops.regression import BasisSpec  # noqa: E402
 
 torch.set_num_threads(2)
@@ -108,3 +109,30 @@ def test_triggers_match(results):
             b = _np(getattr(ref, f"trigger_{side}_{what}"))[has_b]
             np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3 * np.abs(b).max(),
                                        err_msg=f"{side} {what}")
+
+
+@pytest.mark.parametrize("B,F,P,C", [(3, 1, 1, 3), (10, 3, 4, 3), (11, 2, 4, 5), (12, 3, 2, 3),
+                                     (16, 4, 4, 5)],
+                         ids=["B3", "B10", "B11-poly", "B12", "B16-poly"])
+def test_pack_records_layout(B, F, P, C):
+    """The CUDA forward kernel's per-step records: table rows padded to the
+    pitch the kernel names (12 floats up to B = 11, 20 beyond), then the (mu, sd)
+    pairs, pillars and scalars at their offsets, zero-padded to a multiple of 4."""
+    n, G = 3, 7
+    g = torch.Generator().manual_seed(B)
+    tables, mus, sds = (torch.randn(n, B + 1, G, generator=g), torch.randn(n, B, generator=g),
+                        torch.rand(n, B, generator=g) + 0.5)
+    pillars, scalars = torch.randn(n, P, C, generator=g), torch.randn(n, 11 + F, generator=g)
+    pitch = 12 if B + 1 <= 12 else 20
+    used = G * pitch + 2 * B + P * C + 11 + F
+    rec = pack_records(tables, mus, sds, pillars, scalars, pitch)
+    assert rec.shape == (n, -(-used // 4) * 4) and rec.is_contiguous()
+    rows = rec[:, :G * pitch].reshape(n, G, pitch)
+    assert torch.equal(rows[:, :, :B + 1], tables.transpose(1, 2))
+    assert not rows[:, :, B + 1:].any()
+    off = G * pitch
+    musd = torch.stack([mus, sds], dim=2).reshape(n, -1)  # (mu_b, sd_b) pairs
+    for part in (musd, pillars.reshape(n, -1), scalars):
+        assert torch.equal(rec[:, off:off + part.shape[1]], part)
+        off += part.shape[1]
+    assert off == used and not rec[:, off:].any()

@@ -93,6 +93,44 @@ def test_factor_paths_match_jax(antithetic):
     np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-5 * np.abs(expected).max())
 
 
+def factor_case(mod, num_factors, n):
+    """Simulation coefficients of an ``num_factors``-factor model over ``n``
+    irregular steps, from ``mod.sim_coefficients`` (either package's)."""
+    rng = np.random.default_rng(100 * num_factors + n)
+    alphas = np.array([0.0, 2.5, 16.2])[:num_factors]
+    corrs = np.array([[1.0, 0.6, 0.3], [0.6, 1.0, 0.4], [0.3, 0.4, 1.0]])[:num_factors,
+                                                                         :num_factors]
+    times = np.cumsum(rng.uniform(0.5, 3.0, n)) / 365.0
+    return mod.sim_coefficients(alphas, rng.uniform(0.1, 0.9, (n, num_factors)), corrs, times,
+                                rng.uniform(10.0, 20.0, n))
+
+
+# The contract the fused CUDA path kernel is held to on the card (there
+# against the plain version, bit for bit): every factor count the kernel is
+# instantiated for below its maximum, horizons shorter than, equal to and
+# past whole 16-step draw blocks, an odd sim count, with and without
+# antithetic pairs.  Here the public function takes the plain version.
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
+@pytest.mark.parametrize("n", [5, 16, 37])
+@pytest.mark.parametrize("num_factors", [1, 2, 3])
+def test_factor_paths_shapes_match_jax(num_factors, n, antithetic):
+    num_sims = 1023
+    jc, tc = factor_case(jax_sim, num_factors, n), factor_case(torch_sim, num_factors, n)
+    key = torch_sim.fold_in(torch_sim.prng_key(12), 1)
+    expected = np.asarray(jax_sim.simulate_factor_paths(
+        jc, num_sims, None, antithetic, key=jnp.asarray(np.array(key, dtype=np.uint32))))
+    got = torch_sim.simulate_factor_paths(tc, num_sims, antithetic=antithetic, key=key,
+                                          device="cpu").numpy()
+    assert got.shape == expected.shape == (n, num_factors, num_sims)
+    np.testing.assert_allclose(got, expected, rtol=1e-5, atol=1e-5 * np.abs(expected).max())
+
+
+def test_cuda_binding_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_sim._simulate_factor_paths_cuda(factor_case(torch_sim, 2, 5), 8, (0, 1), False,
+                                              "cpu")
+
+
 def test_spot_goldens():
     """``tests/test_golden.py``'s pinned spot prices (seed 12, 4 sims)."""
     golden = {
