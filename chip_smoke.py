@@ -40,6 +40,24 @@ Phases, each printing its own line (every failure exits non-zero):
 7. cancel  — the same run cancelled from its first progress report: it must
    end CANCELLED and give its device memory back.
 8. options — POLY ratchets with ``extra_decisions=1`` at 1M paths.
+9. path_sim_stream — the path kernel's entering state, first step and
+   checkpoint mode: spans from ``StreamingFactorSource(every=64)`` against
+   the one-launch paths at ``[341, 3, 1M]`` for both keys and antithetic at 1
+   to 4 factors, the checkpoint pass against its plain version, ``last()``,
+   the refusal of a read across spans, all bit for bit; both variants timed
+   at the hourly case's shapes beside their bounds.
+10. stream_main — the 1M daily case forced to stream by a path budget of 1e9
+   bytes, against the materialised run of phase 5.
+11. hourly — the second configuration at full width and depth (the case of
+   ``benchmarks/hourly_bench.py``): hourly storage 2021-01-01 -> 2023-01-01,
+   17,520 steps, 250,000 antithetic paths, a path budget of 1.5e9 bytes, run
+   twice (seed 12 to warm, seed 13 timed); NPV against the port's own record
+   and the JAX package's (quantized-route) record, peak device memory and
+   launch counts reckoned from the spans.
+12. reprice — ``fit_policy`` on the 1M daily case's regression set, ``save``,
+   ``load``, ``reprice`` on the valuation set and on a fresh key.
+13. spot_sim — ``MultiFactorSpotSim.simulate`` at 1M x 341 (a martingale
+   check against the forward curve).
 
 Prints the kernel table as one JSON line, then the result as the last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -49,9 +67,11 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import resource
 import subprocess
 import sys
+import tempfile
 import time
 
 NUM_SIMS = 1_000_000
@@ -101,6 +121,32 @@ PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
 SMALL_PATH_SIMS, SMALL_PATH_STEPS = 100_001, 37  # the path kernel's antithetic check
 LARGE_G, LARGE_G_EXTRA = 700, 1  # the random-input K1 phase: G = 700, D = 5
+# Streaming: the variable that sets the path budget (read by the port), the
+# span length of the path kernel's stream check, the budget that forces the
+# 1M daily case to stream and the bound on its NPV against the materialised
+# run (each span solves its latest period directly: float32 regression noise).
+MAX_PATH_BYTES_ENV = "STORAGE_TPU_MAX_PATH_BYTES"
+STREAM_CHECK_EVERY = 64
+STREAM_MAIN_BUDGET, STREAM_NPV_RTOL = 1e9, 1e-4
+# The hourly configuration (benchmarks/hourly_bench.py::build_case(2) and its
+# call): 2-year hourly storage, 250,000 antithetic paths, seed 12 to warm and
+# seed 13 timed, a path budget of 1.5e9 bytes.  The JAX package's record for
+# seed 13 (BENCH_hourly_20260819T202508.json) is NPV 152,007, taken on its TPU
+# route, which rounds interpolation weights to 1/128 of a grid step.  An hourly
+# decision moves the inventory by a seventh of a grid step, so that rounding
+# costs policy value, more the longer the horizon: on the CPU at 90 days and
+# 2,048 paths the JAX package's exact route gives 41,946.90, its quantized
+# route 41,000.01 (-2.26%) and this port 41,946.18
+# (tests/test_torch_hourly.py holds the port to the exact route).  So the
+# port's NPV is held to its own record for this case and seed on an H100
+# (reruns are bit-identical; see PORT_NPV above for when it is re-read), and
+# must lie at or above the quantized record and within 10% of it.
+HOURLY_YEARS, HOURLY_SIMS, HOURLY_BUDGET = 2, 250_000, 1.5e9
+HOURLY_PORT_NPV, HOURLY_NPV_RTOL = 163_372.3750, 1e-4
+HOURLY_QUANTIZED_NPV, HOURLY_QUANTIZED_BAND = 152_007.0, 0.10
+HOURLY_BASIS = "1 + x_st + x_sw + x_lt + s + x_st**2 + s**2"
+HOURLY_PEAK_BYTES_MAX = 6 * 2**30
+REPRICE_NPV_RTOL = 1e-6  # a saved and reloaded policy against the whole run
 
 
 class SmokeFailure(Exception):
@@ -217,16 +263,20 @@ def k2_bound(n, S, F, B, D, panels):
     return _bound(nbytes, flops)
 
 
-def k3_bound(n, S, F, draw_sims):
-    """(ms, "bytes" or "operations") for one K3 launch: the paths written
-    once; per drawn element (n F draw_sims of them) 75 integer operations
-    (threefry2x32's 20 rounds of add, rotate and xor, 11 key additions and
-    the final xor: 72; the counter and the mantissa: 3) and 29 flops (the
-    uniform map 4, the Giles polynomial 25 with log1pf counted as one; the
-    square root of the tail branch is not counted), and per path element
-    2F + 1 flops of the OU update."""
+def k3_bound(n, S, F, draw_sims, rows=None, entering_state=False):
+    """(ms, "bytes" or "operations") for one K3 launch over n steps: the
+    ``rows`` (default n) states ``[F, S]`` it writes, each once (all n in path
+    mode, the checkpoints in checkpoint mode), and the entering state of the
+    drawn sims read once when given; per drawn element (n F draw_sims of
+    them) 75 integer operations (threefry2x32's 20 rounds of add, rotate and
+    xor, 11 key additions and the final xor: 72; the counter and the
+    mantissa: 3) and 29 flops (the uniform map 4, the Giles polynomial 25
+    with log1pf counted as one; the square root of the tail branch is not
+    counted), and per path element (n F S) 2F + 1 flops of the OU update."""
+    rows = n if rows is None else rows
     draws = n * F * draw_sims
-    return _bound(4 * n * F * S, 29 * draws + (2 * F + 1) * n * F * S, 75 * draws)
+    nbytes = 4 * (rows * F * S + (F * draw_sims if entering_state else 0))
+    return _bound(nbytes, 29 * draws + (2 * F + 1) * n * F * S, 75 * draws)
 
 
 def rel_err(a, b):
@@ -625,7 +675,7 @@ def phase_main():
           f"NPV {res.npv} outside {REF_NPV} +- {NPV_RTOL:.0e}")
     check(abs(res.npv - PORT_NPV) <= PORT_NPV_RTOL * PORT_NPV,
           f"NPV {res.npv} outside the port's record {PORT_NPV} +- {PORT_NPV_RTOL:.0e}")
-    return counts, res.npv
+    return counts, res.npv, res.intrinsic_npv, peak
 
 
 def _host_peak_gib():
@@ -764,6 +814,384 @@ def phase_options(main_npv):
     return counts
 
 
+def _bits_differ(a, b):
+    import torch
+
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def _check_stream(label, coeffs, num_sims, key, antithetic, every):
+    """Spans regenerated from checkpoints against the one-launch paths, the
+    checkpoint pass against its plain version, ``last()`` and the refusal of
+    a read across spans: tolerance none, every element bit for bit."""
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    mono = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda")
+    src = simulation.StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
+                                           device="cuda").prepare()
+    spans = src.spans()
+    differ = sum(_bits_differ(src.factors(a, b), mono[a:b]) for a, b in spans)
+    differ_last = _bits_differ(src.last(), mono[-1])
+    max_err = max(float((src.factors(a, b) - mono[a:b]).abs().max()) for a, b in spans[-1:])
+    del mono
+    ckpts = simulation.factor_checkpoints_reference(coeffs, num_sims, key, antithetic,
+                                                    src.every, "cuda")
+    differ_ckpt = _bits_differ(src._checkpoints(), ckpts)
+    torch.cuda.synchronize()
+    try:
+        src.factors(spans[0][1] - 1, spans[0][1] + 1)
+        refused = len(spans) < 2
+    except ValueError:
+        refused = True
+    n, F = coeffs.decay.shape
+    print(f"[{label}] [{n}, {F}, {num_sims}]{' antithetic' if antithetic else ''}, "
+          f"{len(spans)} spans of {src.every}: {differ} path elements differ from the one-launch "
+          f"paths, {differ_last} of last(), {differ_ckpt} of {ckpts.numel()} checkpoint "
+          f"elements from the plain version; cross-span read refused: {refused}")
+    check(differ == 0 and differ_last == 0,
+          f"{label}: {differ} span elements and {differ_last} of last() differ")
+    check(differ_ckpt == 0, f"{label}: {differ_ckpt} checkpoint elements differ")
+    check(refused, f"{label}: a read across two spans was not refused")
+    return max_err
+
+
+def phase_path_sim_stream(captured, hourly_coeffs):
+    """K3's entering state, first step and checkpoint mode, bit for bit, then
+    both variants timed at the hourly case's shapes: the checkpoint pass over
+    the whole horizon and one span resumed from a checkpoint."""
+    import numpy as np
+    import torch
+    from storage_tpu_torch.models import simulation
+    from storage_tpu_torch.valuation import _stream_span_length
+
+    max_err = 0.0
+    for (coeffs, num_sims, kw), name in zip(captured["sim"], ("regression", "valuation")):
+        max_err = max(max_err, _check_stream(f"K3 stream {name} set", coeffs, num_sims,
+                                             kw["key"], False, STREAM_CHECK_EVERY))
+    rng = np.random.default_rng(SEED)
+    for F in (1, 2, 3, 4):
+        n = SMALL_PATH_STEPS
+        small = simulation.SimCoefficients(
+            decay=rng.uniform(0.9, 1.0, (n, F)), chol=np.tril(rng.uniform(-0.2, 0.2, (n, F, F))),
+            vols=np.ones((n, F)), log_fwd_drift=np.zeros(n))
+        max_err = max(max_err, _check_stream(f"K3 stream F={F}", small, SMALL_PATH_SIMS,
+                                             simulation.prng_key(SEED + F), True, 16))
+
+    # Timed at the hourly shapes: [17520 -> 137, 3, 250k] and [128, 3, 250k].
+    n, F = hourly_coeffs.decay.shape
+    S, draw = HOURLY_SIMS, (HOURLY_SIMS + 1) // 2
+    key = simulation.prng_key(SEED)
+    src = simulation.StreamingFactorSource(
+        hourly_coeffs, S, key, True, every=_stream_span_length(HOURLY_BUDGET, 4 * F * S),
+        device="cuda").prepare()
+    every, num_ckpt = src.every, len(src.spans())
+    tables, ckpts = src._tables, src._checkpoints()
+    out_c = torch.empty_like(ckpts)
+    ms_c = cuda_ms(lambda: simulation._launch_path_sim(tables, out_c, S, True, every=every), 3)
+    plain_c = cuda_ms(lambda: simulation.factor_checkpoints_reference(
+        hourly_coeffs, S, key, True, every, "cuda"), 1)
+    differ = _bits_differ(out_c, simulation.factor_checkpoints_reference(
+        hourly_coeffs, S, key, True, every, "cuda"))
+    check(differ == 0, f"K3 checkpoints at the hourly shape: {differ} elements differ")
+    steps_c = (num_ckpt - 1) * every  # the pass stops at the last checkpoint
+    bound_c, by_c = k3_bound(steps_c, S, F, draw, rows=num_ckpt)
+    i = num_ckpt // 2
+    out_s = torch.empty((every, F, S), device="cuda")
+    span = dict(y0=ckpts[i], step0=i * every, num_steps=every)
+    ms_s = cuda_ms(lambda: simulation._launch_path_sim(tables, out_s, S, True, **span), 20)
+    plain_s = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
+        hourly_coeffs, S, key, True, "cuda", **span), 2)
+    differ = _bits_differ(out_s, simulation.simulate_factor_paths_reference(
+        hourly_coeffs, S, key, True, "cuda", **span))
+    check(differ == 0, f"K3 span at the hourly shape: {differ} elements differ")
+    bound_s, by_s = k3_bound(every, S, F, draw, entering_state=True)
+    print(f"[K3 checkpoints] [{n} -> {num_ckpt}, {F}, {S}] antithetic, every {every}: kernel "
+          f"{ms_c:.3f} ms, plain {plain_c:.3f} ms, bound {bound_c:.3f} ms ({by_c}), share "
+          f"{bound_c / ms_c:.3f}")
+    print(f"[K3 span] [{every}, {F}, {S}] antithetic from checkpoint {i}: kernel {ms_s:.3f} ms, "
+          f"plain {plain_s:.3f} ms, bound {bound_s:.3f} ms ({by_s}), share {bound_s / ms_s:.3f}")
+    return {
+        "checkpoints": dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c, bound_ms=bound_c,
+                            bound_by=by_c, share=bound_c / ms_c, library_ms=None),
+        "span": dict(max_abs_err=max_err, ms=ms_s, plain_ms=plain_s, bound_ms=bound_s,
+                     bound_by=by_s, share=bound_s / ms_s, library_ms=None),
+    }
+
+
+class _path_budget:
+    """The path budget set for one phase, as a user sets it (the port reads
+    the variable on each valuation), and put back after it."""
+
+    def __init__(self, nbytes):
+        self.value = repr(float(nbytes))
+
+    def __enter__(self):
+        self.old = os.environ.get(MAX_PATH_BYTES_ENV)
+        os.environ[MAX_PATH_BYTES_ENV] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ[MAX_PATH_BYTES_ENV]
+        else:
+            os.environ[MAX_PATH_BYTES_ENV] = self.old
+
+
+def _stream_counts(num_sim_steps, num_sims, num_factors, budget):
+    """The launches a streamed valuation must make, reckoned from the source's
+    spans: K1 once per simulated decision step, K2 once per span that holds
+    a decision step, K3 one checkpoint pass and one launch per span for each
+    path set (``last()`` reads the span the one-slot cache holds)."""
+    from storage_tpu_torch.valuation import _stream_span_length
+
+    every = -(-_stream_span_length(budget, 4 * num_factors * num_sims) // 16) * 16
+    spans = -(-num_sim_steps // every)
+    m = num_sim_steps - 1
+    fwd_spans = sum(1 for a in range(0, num_sim_steps, every) if a < m)
+    return {"backward_update": m, "forward_sim": fwd_spans,
+            "path_sim": PATH_SETS * (1 + spans)}, every, spans
+
+
+def phase_stream_main(main_npv, main_intrinsic, main_peak):
+    """The 1M daily case forced to stream, against the materialised main run."""
+    import torch
+    import storage_tpu_torch as tt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tt.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _path_budget(STREAM_MAIN_BUDGET):
+        res = value_case(tt, NUM_SIMS, SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = tt.launch_counts(), torch.cuda.max_memory_allocated()
+    n_steps = len(res.expected_profile) - 1
+    expected, every, spans = _stream_counts(n_steps, NUM_SIMS, 3, STREAM_MAIN_BUDGET)
+    rel = abs(res.npv - main_npv) / abs(main_npv)
+    print(f"[stream_main] budget {STREAM_MAIN_BUDGET:.1e} B, {spans} spans of {every}: wall "
+          f"{wall:.3f} s, NPV {res.npv:.4f} (materialised {main_npv:.4f}, rel {rel:.2e}), "
+          f"intrinsic {res.intrinsic_npv:.4f}, peak device memory {peak / 2**30:.3f} GiB "
+          f"(materialised {main_peak / 2**30:.3f}), launches {counts}")
+    check(rel <= STREAM_NPV_RTOL, f"streamed NPV {res.npv} vs materialised {main_npv}: {rel:.2e}")
+    check(res.intrinsic_npv == main_intrinsic, "streamed intrinsic differs from the main run's")
+    check(peak < main_peak, f"streamed peak {peak} not below the materialised {main_peak}")
+    check(counts == expected, f"stream_main launches {counts}, expected {expected}")
+    return counts
+
+
+def build_hourly_case(pkg, years=HOURLY_YEARS):
+    """The case of ``benchmarks/hourly_bench.py::build_case`` for a package
+    with the ``CmdtyStorage``/``RatchetInterp`` API: hourly storage from
+    2021-01-01 over ``years`` years and its forward curve."""
+    import numpy as np
+    import pandas as pd
+
+    end = f"{2021 + years}-01-01"
+    storage = pkg.CmdtyStorage(
+        freq="h", storage_start="2021-01-01", storage_end=end, injection_cost=0.01,
+        withdrawal_cost=0.025,
+        ratchets=[("2021-01-01", [(0.0, -150.0 / 24, 250.0 / 24), (2000.0, -200.0 / 24, 175.0 / 24),
+                                  (5000.0, -260.0 / 24, 155.0 / 24),
+                                  (7000.0, -275.0 / 24, 132.0 / 24)])],
+        ratchet_interp=pkg.RatchetInterp.LINEAR)
+    idx = pd.period_range("2021-01-01", end, freq="h")
+    i = np.arange(len(idx))
+    fwd = pd.Series(16.0 + 2.0 * np.sin(2 * np.pi * i / 8760.0)  # seasonal shape
+                    + 0.8 * np.sin(2 * np.pi * i / 24.0), index=idx)  # intraday shape
+    return storage, fwd
+
+
+def value_hourly(pkg, num_sims, seed, years=HOURLY_YEARS, **kw):
+    """The call of ``benchmarks/hourly_bench.py``."""
+    storage, fwd = build_hourly_case(pkg, years)
+    return pkg.three_factor_seasonal_value(
+        cmdty_storage=storage, val_date="2021-01-01", inventory=1500.0, fwd_curve=fwd,
+        interest_rates=0.01, settlement_rule=None, num_sims=num_sims, seed=seed,
+        antithetic=True, spot_mean_reversion=91.0, spot_vol=0.85, long_term_vol=0.30,
+        seasonal_vol=0.19, basis_funcs=HOURLY_BASIS, discount_deltas=True,
+        return_sim_panels=False, **kw)
+
+
+def hourly_sim_coefficients():
+    """The hourly case's simulation coefficients (what the valuation builds)."""
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.models.multi_factor import (
+        build_sim_coefficients, create_3_factor_season_params)
+    from storage_tpu_torch.utils.frequencies import to_period
+
+    storage, fwd = build_hourly_case(tt)
+    val = to_period("2021-01-01", "h")
+    factors, corrs = create_3_factor_season_params("h", 91.0, 0.85, 0.30, 0.19, val, storage.end)
+    return build_sim_coefficients(factors, corrs, val, fwd, fwd.index[1:])
+
+
+def phase_hourly():
+    """The hourly configuration at full width and depth, streamed."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.engines import lsmc
+
+    phases, health = {}, []
+    real_health = lsmc._check_forward_health
+
+    def sink(sw):
+        phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
+
+    def counted_health(*args):  # raises unless forward and backward NPV are consistent
+        real_health(*args)
+        health.append(float(args[2]))
+
+    lsmc._check_forward_health = counted_health
+    try:
+        with _path_budget(HOURLY_BUDGET):
+            t0 = time.perf_counter()
+            warm = value_hourly(tt, HOURLY_SIMS, 12, device="cuda")
+            torch.cuda.synchronize()
+            warm_wall = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            tt.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = value_hourly(tt, HOURLY_SIMS, SEED, device="cuda", profile_sink=sink)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        lsmc._check_forward_health = real_health
+    counts, peak = tt.launch_counts(), torch.cuda.max_memory_allocated()
+    n_steps = len(res.expected_profile) - 1
+    expected, every, spans = _stream_counts(n_steps, HOURLY_SIMS, 3, HOURLY_BUDGET)
+    rel = abs(res.npv - HOURLY_PORT_NPV) / HOURLY_PORT_NPV
+    above = res.npv / HOURLY_QUANTIZED_NPV - 1.0
+    print(f"[hourly] {HOURLY_SIMS} antithetic paths x {n_steps} hourly steps, budget "
+          f"{HOURLY_BUDGET:.1e} B, {spans} spans of {every}: warm-up (seed 12) {warm_wall:.3f} s, "
+          f"NPV {warm.npv:.4f}; timed (seed {SEED}) wall {wall:.3f} s; phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    print(f"[hourly] NPV {res.npv:.4f} (the port's record {HOURLY_PORT_NPV:.4f}, rel {rel:.2e}; "
+          f"{above:+.2%} on the JAX package's quantized-route record "
+          f"{HOURLY_QUANTIZED_NPV:.0f}), backward "
+          f"NPV {health[-1]:.4f}, intrinsic {res.intrinsic_npv:.4f}, peak device memory "
+          f"{peak / 2**30:.3f} GiB, host peak RSS {_host_peak_gib():.3f} GiB, launches {counts}")
+    deltas = res.deltas.to_numpy()
+    check(n_steps == 8760 * HOURLY_YEARS, f"hourly case has {n_steps} steps")
+    check(np.isfinite(res.npv) and deltas.shape == (n_steps + 1,) and np.isfinite(deltas).all(),
+          "hourly NPV or deltas not finite")
+    check(np.isfinite(res.expected_profile.to_numpy()).all(), "hourly profile not finite")
+    check(res.npv > res.intrinsic_npv, f"hourly NPV {res.npv} <= intrinsic {res.intrinsic_npv}")
+    check(len(health) == 2, f"the forward health check ran {len(health)} times in 2 runs")
+    check(rel <= HOURLY_NPV_RTOL,
+          f"hourly NPV {res.npv} outside the port's record {HOURLY_PORT_NPV} +- {HOURLY_NPV_RTOL}")
+    check(0.0 <= above <= HOURLY_QUANTIZED_BAND,
+          f"hourly NPV {res.npv} is {above:+.2%} on the quantized record {HOURLY_QUANTIZED_NPV}")
+    check(peak < HOURLY_PEAK_BYTES_MAX, f"hourly peak device memory {peak / 2**30:.3f} GiB")
+    check(counts == expected, f"hourly launches {counts}, expected {expected}")
+    return counts
+
+
+def phase_reprice(main_npv):
+    """Fit once, reprice many, on the 1M daily case through the engine-level
+    entry points a re-pricing service would call."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.compile import build_valuation_context
+    from storage_tpu_torch.engines.lsmc import LsmcPolicy, fit_policy, reprice
+    from storage_tpu_torch.models.multi_factor import (
+        build_sim_coefficients, create_3_factor_season_params)
+    from storage_tpu_torch.models.simulation import fold_in, prng_key, simulate_factor_paths
+    from storage_tpu_torch.ops.regression import basis_spec
+    from storage_tpu_torch.utils.basis import THREE_FACTOR_SEASONAL_ALIASES, as_monomials
+
+    storage, fwd_curve, ir_curve, settlement_rule = build_case(tt)
+    ctx = build_valuation_context(storage, "2021-04-25", 1500.0, fwd_curve, ir_curve,
+                                  settlement_rule, 100, 1e-12)
+    factors, corrs = create_3_factor_season_params("D", 91.0, 0.85, 0.30, 0.19, ctx.val_period,
+                                                   storage.end)
+    coeffs = build_sim_coefficients(factors, corrs, ctx.val_period, fwd_curve,
+                                    list(ctx.periods[1:]))
+    spec = basis_spec(as_monomials(BASIS, THREE_FACTOR_SEASONAL_ALIASES), num_factors=3)
+    reg_key = prng_key(SEED)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        tt.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, tt.launch_counts()
+
+    def fit():
+        reg = simulate_factor_paths(coeffs, NUM_SIMS, key=reg_key)
+        return fit_policy(ctx, reg, coeffs.vols, coeffs.log_fwd_drift, spec)
+
+    def price(policy, key):
+        val = simulate_factor_paths(coeffs, NUM_SIMS, key=key)
+        return reprice(ctx, policy, val, coeffs.vols, coeffs.log_fwd_drift, spec,
+                       discount_deltas=True)
+
+    policy, fit_s, fit_counts = timed(fit)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "policy.npz")
+        policy.save(path)
+        size = os.path.getsize(path)
+        loaded = LsmcPolicy.load(path)
+    del policy
+    arrays, price_s, price_counts = timed(lambda: price(loaded, fold_in(reg_key, 1)))
+    npv = float(arrays.npv)
+    pv = arrays.pv_by_sim.double()
+    stderr = float(pv.std()) / np.sqrt(NUM_SIMS)
+    fresh, fresh_s, _ = timed(lambda: price(loaded, prng_key(SEED + 1000)))
+    fresh_npv = float(fresh.npv)
+    rel = abs(npv - main_npv) / abs(main_npv)
+    n_steps = ctx.n_steps
+    print(f"[reprice] fit_policy {fit_s:.3f} s, launches {fit_counts}; policy file "
+          f"{size / 2**20:.2f} MiB; reprice {price_s:.3f} s, launches {price_counts}, NPV "
+          f"{npv:.4f} (main {main_npv:.4f}, rel {rel:.2e}); fresh key {fresh_s:.3f} s, NPV "
+          f"{fresh_npv:.4f} ({abs(fresh_npv - npv) / stderr:.2f} standard errors of {stderr:.4f})")
+    check(rel <= REPRICE_NPV_RTOL, f"repriced NPV {npv} vs main {main_npv}: {rel:.2e}")
+    check(fit_counts == {"backward_update": n_steps - 1, "forward_sim": 0, "path_sim": 1},
+          f"fit_policy launches {fit_counts}")
+    check(price_counts == {"backward_update": 0, "forward_sim": 1, "path_sim": 1},
+          f"reprice launches {price_counts}")
+    check(abs(fresh_npv - npv) <= 4.0 * np.sqrt(2.0) * stderr,
+          f"fresh-key NPV {fresh_npv} vs {npv}: more than 4 standard errors of the difference")
+    return {k: fit_counts[k] + price_counts[k] for k in fit_counts}
+
+
+def phase_spot_sim():
+    """``MultiFactorSpotSim.simulate`` at the main case's 1M x 341: one launch
+    of the path kernel, and the mean spot of each period within 4 standard
+    errors of the forward curve (the simulated spot is a martingale)."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+
+    storage, fwd_curve, _, _ = build_case(tt)
+    periods = fwd_curve.index[(fwd_curve.index > "2021-04-25") & (fwd_curve.index <= storage.end)]
+    factors, corrs = tt.create_3_factor_season_params("D", 91.0, 0.85, 0.30, 0.19, "2021-04-25",
+                                                      storage.end)
+    sim = tt.MultiFactorSpotSim("D", factors, corrs, "2021-04-25", fwd_curve, periods, seed=SEED)
+    torch.cuda.synchronize()
+    tt.reset_launch_counts()
+    t0 = time.perf_counter()
+    frame = sim.simulate(NUM_SIMS)
+    wall = time.perf_counter() - t0
+    counts = tt.launch_counts()
+    spots = frame.to_numpy()
+    mean = spots.mean(axis=1, dtype=np.float64)
+    stderr = spots.std(axis=1, dtype=np.float64) / np.sqrt(NUM_SIMS)
+    z = np.abs(mean - fwd_curve[periods].to_numpy()) / stderr
+    print(f"[spot_sim] MultiFactorSpotSim.simulate {frame.shape}: wall {wall:.3f} s, launches "
+          f"{counts}; mean spot against the forward curve: at most {z.max():.2f} standard "
+          f"errors (period {int(z.argmax())})")
+    check(frame.shape == (len(periods), NUM_SIMS) == (341, NUM_SIMS) and np.isfinite(spots).all(),
+          f"spot frame {frame.shape} not finite or not (341, {NUM_SIMS})")
+    check(counts == {"backward_update": 0, "forward_sim": 0, "path_sim": 1},
+          f"spot_sim launches {counts}")
+    check(z.max() <= 4.0, f"mean spot {z.max():.2f} standard errors from the forward curve")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -779,21 +1207,28 @@ def main() -> int:
         k2 = phase_forward(captured)
         k2_variants = phase_forward_variants(captured)
         k3 = phase_path_sim(captured)
+        k3_variants = phase_path_sim_stream(captured, hourly_sim_coefficients())
         del captured
         gc.collect()
         torch.cuda.empty_cache()
-        counts, main_npv = phase_main()
+        counts, main_npv, main_intrinsic, main_peak = phase_main()
         async_counts = phase_async(main_npv)
         gc.collect()
         phase_cancel()
         options_counts = phase_options(main_npv)
+        stream_counts = phase_stream_main(main_npv, main_intrinsic, main_peak)
+        hourly_counts = phase_hourly()
+        reprice_counts = phase_reprice(main_npv)
+        spot_counts = phase_spot_sim()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     except ImportError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    paths = {"main": counts, "async": async_counts, "options": options_counts}
+    paths = {"main": counts, "async": async_counts, "options": options_counts,
+             "stream_main": stream_counts, "hourly": hourly_counts, "reprice": reprice_counts,
+             "spot_sim": spot_counts}
     kernels = [
         dict(name="backward_update", route="cuda",
              source="storage_tpu_torch/ops/csrc/backward_update.cu",
@@ -811,7 +1246,8 @@ def main() -> int:
              source="storage_tpu_torch/ops/csrc/path_sim.cu",
              replaces="storage_tpu/models/simulation.py:264 (XLA code, no Pallas kernel)",
              launches=counts["path_sim"], **k3,
-             launches_by_path={p: c["path_sim"] for p, c in paths.items()}),
+             launches_by_path={p: c["path_sim"] for p, c in paths.items()},
+             variants=k3_variants),
     ]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

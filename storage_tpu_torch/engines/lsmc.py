@@ -26,6 +26,14 @@ Reference: ``LsmcStorageValuation.Calculate<T>``
   the host waits for the device, checks the cancellation hook and reports
   progress, weighted 0.66 backward / 0.34 forward (reference
   ``LsmcStorageValuation.cs:46, 337-339, 488-490``).
+- A path-set factory may return a
+  :class:`~storage_tpu_torch.models.simulation.StreamingFactorSource`
+  instead of a tensor (hourly horizons whose paths do not fit the device):
+  both passes then walk the source's spans, reading each span's factors as
+  it is regenerated from its checkpoint.
+- :func:`fit_policy` runs the backward induction alone and returns the
+  fitted :class:`LsmcPolicy`, which can be saved, loaded and handed to
+  :func:`reprice` with fresh paths (intraday re-pricing).
 
 Deviations from the reference are those of the JAX package: fixed-count
 linspace grids, and the end-period terminal PV read from the valuation path
@@ -41,6 +49,7 @@ import torch
 
 from ..compile import ValuationContext
 from ..exceptions import StorageError
+from ..models.simulation import StreamingFactorSource
 from ..ops.backward import assemble_regression, backward_update
 from ..ops.forward import forward_sim, pack_scalars
 from ..ops.interp import fractional_index
@@ -270,43 +279,80 @@ def _current_period_step(v_next, dev: LsmcDeviceInputs, interp_kind, num_grid_po
     return immediate[0].gather(0, best) + actual, cont_mean
 
 
+class _FactorAccess(NamedTuple):
+    """Uniform span access over a materialised ``[m+1, F, S]`` tensor or a
+    :class:`StreamingFactorSource` (``_factor_access`` of the JAX package)."""
+
+    get: Callable[[int, int], torch.Tensor]  # (a, b) -> factors [b - a, F, S]
+    last: Callable[[], torch.Tensor]  # () -> [F, S] of the final simulated period
+    num_steps: int  # m + 1
+    num_sims: int
+    spans: Optional[List[Tuple[int, int]]]  # the source's aligned spans, or None
+
+
+def _factor_access(factors_or_source) -> _FactorAccess:
+    if isinstance(factors_or_source, StreamingFactorSource):
+        src = factors_or_source
+        return _FactorAccess(src.factors, src.last, src.num_steps, src.num_sims, src.spans())
+    arr = factors_or_source
+    return _FactorAccess(lambda a, b: arr[a:b], lambda: arr[-1], arr.shape[0], arr.shape[-1],
+                         None)
+
+
+def _refine_spans(m: int, num_chunks: int, source_spans) -> List[Tuple[int, int]]:
+    """The spans of decision steps ``[0, m)`` a pass walks.
+
+    Without a streaming source this is :func:`_chunk_bounds`.  With one, the
+    source's aligned spans are the spans (each ``factors(a, b)`` read must
+    stay within one of them), cut at ``m``: the source's last step is the end
+    period, which no decision step reads.  They are not split further, with
+    or without progress hooks.
+    """
+    if source_spans is None:
+        return _chunk_bounds(m, num_chunks)
+    return [(a, min(b, m)) for a, b in source_spans if a < m]
+
+
 def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
                       spec: BasisSpec, interp_kind: int, num_grid_points: int,
                       extra_decisions: int, val_first: bool, terminal_fn,
-                      spans: Optional[List[Tuple[int, int]]] = None,
+                      num_chunks: int = 1,
                       after_span: Optional[Callable[[float], None]] = None):
-    """Backward induction over the regression path set ``[m+1, F, S]``.
+    """Backward induction over the regression path set: a tensor
+    ``[m+1, F, S]`` or a :class:`StreamingFactorSource` of as many steps.
 
-    ``spans`` (default: one span over all ``m`` decision steps) are walked
-    in reverse, each a :func:`backward_scan` handed the previous span's
-    value surface; ``after_span(progress)`` runs after each.
+    The spans (:func:`_refine_spans`: ``num_chunks`` spans of a tensor, the
+    source's own of a source) are walked in reverse, each a
+    :func:`backward_scan` handed the previous span's value surface;
+    ``after_span(progress)`` runs after each.
     Returns ``(backward_npv, cont_mean0 [G], coeffs [m,B,G], mus, sds, vbars)``.
     ``cont_mean0`` is the current-period mean continuation when ``val_first``
     (reference :171-181), else zeros (unused).
     """
     G = num_grid_points
-    S = reg_factors.shape[-1]
-    m = reg_factors.shape[0] - 1  # simulated decision steps
+    reg = _factor_access(reg_factors)
+    S = reg.num_sims
+    m = reg.num_steps - 1  # simulated decision steps
     first = 1 if val_first else 0
     n = m + first
 
     # Terminal values on the end-period grid (reference :107-128), computed on
     # the regression path set like the backward induction itself.
     if terminal_fn is None:
-        v = reg_factors.new_zeros((G, S))
+        v = sim_vols.new_zeros((G, S))
     else:
-        end_spots = spot_from_factors(reg_factors[-1], sim_vols[-1], sim_drift[-1])
+        end_spots = spot_from_factors(reg.last(), sim_vols[-1], sim_drift[-1])
         v_end = torch.as_tensor(terminal_fn(end_spots[:, None], dev.grids[n][None, :]),
-                                dtype=torch.float32, device=reg_factors.device)
+                                dtype=torch.float32, device=sim_vols.device)
         v = v_end.broadcast_to((S, G)).T.contiguous()
 
     if m:
-        spans = spans or [(0, m)]
+        spans = _refine_spans(m, num_chunks, reg.spans)
         parts = []
         for i, (a, b) in enumerate(reversed(spans)):
             geometry = _decision_geometry(dev, first + a, b - a, interp_kind, G, extra_decisions)
             v, *policy = backward_scan(
-                v, reg_factors[a:b], sim_vols[a:b], sim_drift[a:b], geometry, spec)
+                v, reg.get(a, b), sim_vols[a:b], sim_drift[a:b], geometry, spec)
             parts.insert(0, policy)
             if after_span is not None:
                 after_span(BACKWARD_PCNT_TIME * (i + 1) / len(spans))
@@ -471,23 +517,26 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
                      dev: LsmcDeviceInputs, backward_npv, spec: BasisSpec, interp_kind: int,
                      num_grid_points: int, extra_decisions: int, val_first: bool, terminal_fn,
                      discount_deltas: bool, collect_panels: bool = False,
-                     spans: Optional[List[Tuple[int, int]]] = None,
+                     num_chunks: int = 1,
                      after_span: Optional[Callable[[float], None]] = None) -> LsmcArrays:
-    """Forward pass through the ``forward_sim`` kernel, one launch per span
-    (default: one span over the horizon), then result assembly (structure of
-    the JAX package's ``_forward_program_pallas``).
+    """Forward pass through the ``forward_sim`` kernel over the valuation
+    path set (a tensor ``[m+1, F, S]`` or a :class:`StreamingFactorSource`),
+    one launch per span (:func:`_refine_spans`; default: one span over the
+    horizon), then result assembly (structure of the JAX package's
+    ``_forward_program_pallas``).
 
     With ``collect_panels`` the kernel writes each span's rows of one
     ``[n+1, 6, S]`` buffer; the current-period row (every sim takes the same
     decision there) and the end row are filled here.
     """
     G = num_grid_points
-    S = val_factors.shape[-1]
-    m = val_factors.shape[0] - 1
+    val = _factor_access(val_factors)
+    S = val.num_sims
+    m = val.num_steps - 1
     first = 1 if val_first else 0
     n = m + first
     dfd = dev.df_settle if discount_deltas else torch.ones_like(dev.df_settle)
-    panels = val_factors.new_empty((n + 1, 6, S if collect_panels else 0))
+    panels = sim_vols.new_empty((n + 1, 6, S if collect_panels else 0))
 
     if val_first:
         inv0, pv0, outputs0 = _step0_single_sim(cont_mean0, dev, dfd[0], interp_kind, G,
@@ -506,13 +555,13 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
         dev.cons_withdraw[first:n], dev.inv_cost_rate[first:n], dev.df_settle[first:n],
         dev.df_start[first:n], sim_drift[:m], sim_vols[:m],
     )
-    spans = spans or [(0, m)]
+    spans = _refine_spans(m, num_chunks, val.spans) if m else [(0, 0)]
     inv = inv0.reshape(1).expand(S).contiguous()
     pv_total = torch.zeros_like(inv)
     sums_parts, xsums_parts = [], []
     for i, (a, b) in enumerate(spans):
         sums, xsums, inv, pv = forward_sim(
-            val_factors[a:b], inv, tables[a:b], mus[a:b], sds[a:b], pillars[a:b],
+            val.get(a, b), inv, tables[a:b], mus[a:b], sds[a:b], pillars[a:b],
             scalars[a:b], spec=spec, interp_kind=interp_kind, num_grid=G,
             extra_decisions=extra_decisions,
             panels=panels[first + a:first + b] if collect_panels else None,
@@ -528,7 +577,7 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
                                first, n, S, interp_kind, G, extra_decisions)
     if val_first:
         stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(outputs0, stacked))
-    end_spots = spot_from_factors(val_factors[-1], sim_vols[-1], sim_drift[-1])
+    end_spots = spot_from_factors(val.last(), sim_vols[-1], sim_drift[-1])
     return _assemble_arrays(stacked, inv, pv_by_sim, end_spots, terminal_fn, backward_npv,
                             panels)
 
@@ -650,16 +699,33 @@ def _span_hook(device, on_progress_update, cancelled) -> Callable[[float], None]
     return after_span
 
 
+def _program_statics(ctx: ValuationContext, spec: BasisSpec, extra_decisions: int) -> dict:
+    """The keyword arguments both programs take from the context."""
+    return dict(
+        spec=spec, interp_kind=ctx.interp_kind, num_grid_points=ctx.num_grid_points,
+        extra_decisions=extra_decisions, val_first=ctx.val_date_is_first_step,
+        terminal_fn=ctx.storage.terminal_npv_fn,
+    )
+
+
+def _on_device(x, device):
+    """``x`` as a contiguous float32 tensor on ``device``; a streaming source
+    (which lives on its own device) as it is."""
+    if isinstance(x, StreamingFactorSource):
+        return x
+    return torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
+
+
 def run_lsmc(
     ctx: ValuationContext,
-    reg_sims,  # callable () -> factors [m+1, F, S], or the tensor itself
-    val_sims,  # callable () -> factors [m+1, F, S], or the tensor itself
+    reg_sims,  # callable () -> factors [m+1, F, S] or a StreamingFactorSource, or either itself
+    val_sims,  # the same for the valuation path set
     sim_vols,  # [m+1, F] spot-vol loadings per simulated period
     sim_drift,  # [m+1] ln F(0,t_k) - V_k/2 per simulated period
     spec: BasisSpec,
     discount_deltas: bool,
     extra_decisions: int = 0,
-    device=None,
+    device="cuda",
     on_progress_update: Optional[Callable[[float], None]] = None,
     cancelled: Optional[Callable[[], bool]] = None,
     collect_panels: bool = False,
@@ -673,27 +739,23 @@ def run_lsmc(
     ``cancelled`` both passes run in ``NUM_PROGRESS_CHUNKS`` spans with the
     hooks between them (the JAX package's ``_run_lsmc_chunked``), and
     progress ends at 1.0; a cancel raises :class:`ValuationCancelledError`.
+    A factory that returns a :class:`StreamingFactorSource` makes its pass
+    walk the source's spans instead, with or without hooks.
     """
-    G = ctx.num_grid_points
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device(device)
     dev = device_inputs(ctx, device)
-    statics = dict(
-        spec=spec, interp_kind=ctx.interp_kind, num_grid_points=G,
-        extra_decisions=extra_decisions, val_first=ctx.val_date_is_first_step,
-        terminal_fn=ctx.storage.terminal_npv_fn,
-    )
-    sim_vols = torch.as_tensor(sim_vols, dtype=torch.float32).to(device).contiguous()
-    sim_drift = torch.as_tensor(sim_drift, dtype=torch.float32).to(device).contiguous()
+    statics = _program_statics(ctx, spec, extra_decisions)
+    sim_vols, sim_drift = _on_device(sim_vols, device), _on_device(sim_drift, device)
     chunked = on_progress_update is not None or cancelled is not None
-    m = sim_vols.shape[0] - 1
-    spans = _chunk_bounds(m, NUM_PROGRESS_CHUNKS if chunked else 1)
+    num_chunks = NUM_PROGRESS_CHUNKS if chunked else 1
     after_span = _span_hook(device, on_progress_update, cancelled) if chunked else None
 
     reg_factors = reg_sims() if callable(reg_sims) else reg_sims
     if stopwatches is not None:
         stopwatches.start("BackwardInduction")
     backward_npv, cont_mean0, coeffs, mus, sds, vbars = _backward_program(
-        reg_factors, sim_vols, sim_drift, dev, spans=spans, after_span=after_span, **statics)
+        reg_factors, sim_vols, sim_drift, dev, num_chunks=num_chunks, after_span=after_span,
+        **statics)
     _check_backward_health(coeffs, vbars, ctx.fwd)
     if stopwatches is not None:
         stopwatches.stop("BackwardInduction")
@@ -705,10 +767,93 @@ def run_lsmc(
     arrays = _forward_program(
         val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, sds, vbars, dev,
         backward_npv, discount_deltas=discount_deltas, collect_panels=collect_panels,
-        spans=spans, after_span=after_span, **statics)
+        num_chunks=num_chunks, after_span=after_span, **statics)
     if stopwatches is not None:
         stopwatches.synchronize()
         stopwatches.stop("ForwardSimulation")
     if on_progress_update is not None:
         on_progress_update(1.0)
     return arrays
+
+
+# --------------------------------------------------------------------------- #
+# Policy capture / repricing                                                  #
+# --------------------------------------------------------------------------- #
+
+
+class LsmcPolicy(NamedTuple):
+    """A fitted exercise policy: everything the forward pass needs.
+
+    The reference retains regression coefficients from the backward pass and
+    reuses them in the forward pass within one calculation
+    (``LsmcStorageValuation.cs:156, 206, 350, 394``).  A policy can be saved
+    (``save``) and repriced against fresh path sets without re-running the
+    backward induction — e.g. intraday re-pricing or standalone scenario
+    runs.  The ``.npz`` file has the JAX package's six field names, so a file
+    saved by either package loads in the other.
+    """
+
+    coeffs: torch.Tensor  # [m, B, G]
+    mus: torch.Tensor  # [m, B]
+    sds: torch.Tensor  # [m, B]
+    vbars: torch.Tensor  # [m, G]
+    cont_mean0: torch.Tensor  # [G]
+    backward_npv: torch.Tensor  # scalar
+
+    def save(self, path: str) -> None:
+        np.savez(path, **{f: getattr(self, f).detach().cpu().numpy() for f in self._fields})
+
+    @classmethod
+    def from_numpy(cls, arrays, device="cuda") -> "LsmcPolicy":
+        """The policy from a mapping or an object with the six fields (an
+        ``.npz``, the JAX package's ``LsmcPolicy``, a dict of arrays), as
+        float32 tensors on ``device``."""
+        def field(name):
+            a = getattr(arrays, name) if hasattr(arrays, "_fields") else arrays[name]
+            return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+        return cls(**{f: field(f) for f in cls._fields})
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "LsmcPolicy":
+        with np.load(path) as data:
+            return cls.from_numpy(data, device)
+
+
+def fit_policy(
+    ctx: ValuationContext,
+    reg_factors,  # [m+1, F, S] tensor (or array), or a StreamingFactorSource
+    sim_vols,
+    sim_drift,
+    spec: BasisSpec,
+    extra_decisions: int = 0,
+    device="cuda",
+) -> LsmcPolicy:
+    """Run only the backward induction and capture the fitted policy."""
+    device = torch.device(device)
+    backward_npv, cont_mean0, coeffs, mus, sds, vbars = _backward_program(
+        _on_device(reg_factors, device), _on_device(sim_vols, device), _on_device(sim_drift, device),
+        device_inputs(ctx, device), **_program_statics(ctx, spec, extra_decisions))
+    return LsmcPolicy(coeffs, mus, sds, vbars, cont_mean0, backward_npv)
+
+
+def reprice(
+    ctx: ValuationContext,
+    policy: LsmcPolicy,
+    val_factors,  # [m+1, F, S] tensor (or array), or a StreamingFactorSource
+    sim_vols,
+    sim_drift,
+    spec: BasisSpec,
+    discount_deltas: bool = False,
+    extra_decisions: int = 0,
+    collect_panels: bool = False,
+    device="cuda",
+) -> LsmcArrays:
+    """Forward-simulate a previously fitted policy on a fresh path set."""
+    device = torch.device(device)
+    policy = LsmcPolicy(*(t.to(device) for t in policy))
+    return _forward_program(
+        _on_device(val_factors, device), _on_device(sim_vols, device), _on_device(sim_drift, device),
+        policy.cont_mean0, policy.coeffs, policy.mus, policy.sds, policy.vbars,
+        device_inputs(ctx, device), policy.backward_npv, discount_deltas=discount_deltas,
+        collect_panels=collect_panels, **_program_statics(ctx, spec, extra_decisions))

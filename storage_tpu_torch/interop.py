@@ -8,12 +8,12 @@ and their arrays through ``numpy.asarray``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
 
 import numpy as np
-import torch
 
 from .compile import ValuationContext
+from .engines.lsmc import LsmcPolicy
 from .ops.inventory_space import InventorySpace
 
 _CONTEXT_ARRAYS = (
@@ -49,20 +49,12 @@ def context_from_numpy(ctx) -> ValuationContext:
     )
 
 
-class ForwardPolicy(NamedTuple):
-    """The regression policy the forward pass applies, per simulated step."""
-
-    coeffs: torch.Tensor  # [m, B, G]
-    mus: torch.Tensor  # [m, B]
-    sds: torch.Tensor  # [m, B]
-    vbars: torch.Tensor  # [m, G]
-
-
-def lsmc_policy_from_numpy(coeffs, mus, sds, vbars, device=None) -> ForwardPolicy:
-    """Float32 tensors on ``device`` from a backward pass's outputs (arrays of
-    either package, or anything ``numpy.asarray`` accepts)."""
-
-    def t(a):
-        return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
-
-    return ForwardPolicy(t(coeffs), t(mus), t(sds), t(vbars))
+def lsmc_policy_from_numpy(policy, device="cuda") -> LsmcPolicy:
+    """The port's :class:`LsmcPolicy` (float32 tensors on ``device``) from a
+    fitted policy of either package: the path of an ``.npz`` written by
+    ``LsmcPolicy.save``, a mapping of the six field names to arrays, or an
+    object with those fields (the JAX package's ``LsmcPolicy``; anything
+    ``numpy.asarray`` accepts per field)."""
+    if isinstance(policy, (str, os.PathLike)):
+        return LsmcPolicy.load(policy, device)
+    return LsmcPolicy.from_numpy(policy, device)

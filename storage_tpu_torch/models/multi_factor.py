@@ -1,24 +1,30 @@
-"""Multi-factor forward-curve model: validation, the three-factor seasonal
-parameterisation and the simulation coefficients the valuation path needs.
+"""Multi-factor forward-curve model: validation, closed-form analytics,
+seasonal parameterisation, and the standalone path-simulator API.
 
-Host-side NumPy/pandas, ported from the JAX package's
-``models/multi_factor.py``; the closed-form analytics class and the
-standalone spot simulator are not ported yet (ROADMAP Queue 1).
+Replaces the reference's ``cmdty_storage/multi_factor.py`` public surface
+(``MultiFactorModel``, ``MultiFactorSpotSim``, ``create_3_factor_season_params``,
+``_validate_multi_factor_params``) with the same semantics, ported from the
+JAX package's ``models/multi_factor.py``.  The analytics are host-side
+NumPy/pandas in float64; simulation runs through
+:mod:`storage_tpu_torch.models.simulation` (the path kernel on a CUDA device).
 """
 from __future__ import annotations
 
+import math
 from datetime import date, datetime
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import pandas as pd
 
+from ..utils.daycount import act_365
 from ..utils.frequencies import PeriodLike, normalize_freq, to_period
-from .simulation import sim_coefficients
+from .simulation import sim_coefficients, simulate_spot_paths
 
 CurveType = Union[pd.Series, Dict]
 FactorType = Tuple[float, CurveType]
-FactorCorrsType = Union[None, float, int, np.ndarray]
+FactorCorrsType = Optional[Union[float, int, np.ndarray]]
+TimeFunctionType = object  # Callable[[date-like, date-like], float]
 
 DAYS_PER_YEAR = 365.25
 SECONDS_PER_YEAR = 60 * 60 * 24 * DAYS_PER_YEAR
@@ -147,6 +153,96 @@ def _as_day(date_like) -> date:
     raise TypeError(type(date_like))
 
 
+class MultiFactorModel:
+    """Closed-form analytics of the multi-factor model.
+
+    Reference: the pure-Python mirror class (``multi_factor.py:151-251``) —
+    integrated covariance/variance/vol/correlation of forward contracts under
+
+        dF(t,T)/F = sum_i sigma_i(T) e^{-alpha_i (T-t)} dW_i.
+    """
+
+    _corr_tolerance = 1e-10
+
+    def __init__(
+        self,
+        freq: str,
+        factors: Iterable[FactorType],
+        factor_corrs: FactorCorrsType = None,
+        time_func: Optional[TimeFunctionType] = None,
+    ):
+        factors = list(factors)
+        self._factor_corrs = validate_multi_factor_params(factors, factor_corrs)
+        self._factors = factors
+        self._time_func = act_365 if time_func is None else time_func
+        self._freq = freq
+
+    @property
+    def num_factors(self) -> int:
+        return len(self._factors)
+
+    def integrated_covar(self, obs_start, obs_end, fwd_contract_1, fwd_contract_2) -> float:
+        """Covariance of ln F(., T1) and ln F(., T2) observed over
+        [obs_start, obs_end] (``multi_factor.py:166-187``)."""
+        obs_end_t = self._time_func(obs_start, obs_end)
+        if obs_end_t < 0.0:
+            raise ValueError("obs_end cannot be before obs_start.")
+        fwd_1_t = self._time_func(obs_start, fwd_contract_1)
+        fwd_2_t = self._time_func(obs_start, fwd_contract_2)
+
+        # Vectorised over factor pairs: cov = sum_ij rho_ij v1_i v2_j
+        #   e^{-a_i T1 - a_j T2} * integral_0^t e^{(a_i+a_j) u} du.
+        mr = np.array([m for m, _ in self._factors])
+        v1 = np.array([_curve_lookup(vc, fwd_contract_1, i) for i, (_, vc) in enumerate(self._factors)])
+        v2 = np.array([_curve_lookup(vc, fwd_contract_2, j) for j, (_, vc) in enumerate(self._factors)])
+        x = mr[:, None] + mr[None, :]
+        with np.errstate(invalid="ignore"):
+            time_term = np.where(x == 0.0, obs_end_t, np.expm1(x * obs_end_t) / np.where(x == 0.0, 1.0, x))
+        decay = np.exp(-mr[:, None] * fwd_1_t - mr[None, :] * fwd_2_t)
+        return float(np.sum(self._factor_corrs * np.outer(v1, v2) * decay * time_term))
+
+    def integrated_variance(self, obs_start, obs_end, fwd_contract) -> float:
+        return self.integrated_covar(obs_start, obs_end, fwd_contract, fwd_contract)
+
+    def integrated_stan_dev(self, obs_start, obs_end, fwd_contract) -> float:
+        return math.sqrt(self.integrated_variance(obs_start, obs_end, fwd_contract))
+
+    def integrated_vol(self, val_date, expiry, fwd_contract) -> float:
+        time_to_expiry = self._time_func(val_date, expiry)
+        if time_to_expiry <= 0:
+            raise ValueError("val_date must be before expiry.")
+        return math.sqrt(
+            self.integrated_variance(val_date, expiry, fwd_contract) / time_to_expiry
+        )
+
+    def integrated_corr(self, obs_start, obs_end, fwd_contract_1, fwd_contract_2) -> float:
+        covariance = self.integrated_covar(obs_start, obs_end, fwd_contract_1, fwd_contract_2)
+        var_1 = self.integrated_variance(obs_start, obs_end, fwd_contract_1)
+        var_2 = self.integrated_variance(obs_start, obs_end, fwd_contract_2)
+        corr = covariance / math.sqrt(var_1 * var_2)
+        if 1.0 < corr < 1.0 + self._corr_tolerance:
+            return 1.0
+        if -1.0 - self._corr_tolerance < corr < -1.0:
+            return -1.0
+        return corr
+
+    @staticmethod
+    def for_3_factor_seasonal(
+        freq: str,
+        spot_mean_reversion: float,
+        spot_vol: float,
+        long_term_vol: float,
+        seasonal_vol: float,
+        start,
+        end,
+        time_func: Optional[TimeFunctionType] = None,
+    ) -> "MultiFactorModel":
+        factors, factor_corrs = create_3_factor_season_params(
+            freq, spot_mean_reversion, spot_vol, long_term_vol, seasonal_vol, start, end
+        )
+        return MultiFactorModel(freq, factors, factor_corrs, time_func)
+
+
 def create_3_factor_season_params(
     freq: str,
     spot_mean_reversion: float,
@@ -228,8 +324,6 @@ def build_sim_coefficients(
             / (86_400.0 * 365.0)
         )
     else:
-        from ..utils.daycount import act_365
-
         scalar_tf = time_func or act_365
         times = np.array(
             [scalar_tf(current_date, p) for p in sim_periods], dtype=np.float64
@@ -243,3 +337,57 @@ def build_sim_coefficients(
     forwards = _curve_sample(fwd_curve, sim_periods, period_index, -1)
     mean_reversions = np.array([mr for mr, _ in factors], dtype=np.float64)
     return sim_coefficients(mean_reversions, vols, factor_corrs, times, forwards)
+
+
+class MultiFactorSpotSim:
+    """Standalone spot-price simulator returning a (periods x sims) DataFrame.
+
+    API mirrors the reference class (``multi_factor.py:49-92``); the RNG is
+    threefry (the JAX package's draws for the same seed) instead of Mersenne
+    Twister, so seeded values differ from the reference but are deterministic
+    per seed.  On a CUDA ``device`` (the default) the paths come from one
+    launch of the path kernel.
+
+    .. note:: Seeded values are reproducible **per release only**: a kernel
+       re-layout may re-key the RNG stream at any minor version, so pin the
+       package version next to any pinned seed values.
+    """
+
+    def __init__(
+        self,
+        freq: str,
+        factors: Iterable[FactorType],
+        factor_corrs: FactorCorrsType,
+        current_date: Union[datetime, date, str, pd.Period],
+        fwd_curve: CurveType,
+        sim_periods: Iterable[Union[pd.Period, datetime, date, str]],
+        seed: Optional[int] = None,
+        antithetic: bool = False,
+        time_func=None,
+        device="cuda",
+    ):
+        factors = list(factors)
+        factor_corrs = validate_multi_factor_params(factors, factor_corrs)
+        norm_freq = normalize_freq(freq)
+        self._sim_periods = [
+            p if isinstance(p, pd.Period) else to_period(p, norm_freq) for p in sim_periods
+        ]
+        self._coeffs = build_sim_coefficients(
+            factors, factor_corrs, current_date, fwd_curve, self._sim_periods, time_func
+        )
+        self._freq = norm_freq
+        self._seed = seed
+        self._antithetic = antithetic
+        self._device = device
+        self._num_factors = len(factors)
+
+    def simulate(self, num_sims: int) -> pd.DataFrame:
+        spots, _factors = self.simulate_with_factors(num_sims)
+        period_index = pd.PeriodIndex(data=self._sim_periods, freq=self._freq)
+        return pd.DataFrame(data=spots.cpu().numpy(), index=period_index)
+
+    def simulate_with_factors(self, num_sims: int):
+        """Spots and Markov factor states as tensors (``[n, S]``, ``[n, F, S]``)."""
+        return simulate_spot_paths(
+            self._coeffs, num_sims, self._seed, self._antithetic, device=self._device
+        )

@@ -28,11 +28,18 @@ PyTorch version: threefry2x32 in int64 tensor arithmetic masked to 32 bits,
 normals one 16-step draw block at a time (integer temporaries of
 ``[16, F, S]``).  The kernel rounds every step as the plain version's torch
 ops do, so the two give the same paths bit for bit on one card.
+
+:class:`StreamingFactorSource` serves horizons whose paths do not fit the
+device: one checkpoint pass (the kernel's checkpoint mode, or
+:func:`factor_checkpoints_reference`) keeps the state entering every span,
+and each span is regenerated from its checkpoint on demand (the kernel, or
+the plain version, resumed at the span's first step), bit for bit the paths
+of one pass over the whole horizon.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -231,23 +238,24 @@ def _block_normals(key, b0: int, num_factors: int, num_sims: int, antithetic: bo
     return normal(k, (_DRAW_BLOCK, num_factors, num_sims), device)
 
 
-def simulate_factor_paths_reference(
-    coeffs: SimCoefficients,
-    num_sims: int,
-    key: Tuple[int, int],
-    antithetic: bool = False,
-    device=None,
-) -> torch.Tensor:
-    """Plain PyTorch version of the path kernel: factor paths ``[n, F, S]``
-    (float32) on ``device`` for the threefry ``key``."""
-    n, num_factors = coeffs.decay.shape
+def _ou_steps(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int], antithetic: bool,
+              device, y0: Optional[torch.Tensor], step0: int, num_steps: int):
+    """Yield ``(i, y)``: the factor state ``[F, S]`` after local step ``i`` of
+    the ``num_steps`` steps from absolute step ``step0`` (a multiple of the
+    draw block), entered with state ``y0`` (None: zeros).  Each ``y`` is a new
+    tensor."""
+    if step0 % _DRAW_BLOCK:
+        raise ValueError(f"step0 ({step0}) must be a multiple of {_DRAW_BLOCK}.")
+    num_factors = coeffs.decay.shape[1]
     decay = torch.as_tensor(coeffs.decay, dtype=torch.float32).to(device)
     chol = torch.as_tensor(coeffs.chol, dtype=torch.float32).to(device)
-    out = torch.empty((n, num_factors, num_sims), dtype=torch.float32, device=device)
-    y = torch.zeros((num_factors, num_sims), dtype=torch.float32, device=device)
-    for b0 in range(0, n, _DRAW_BLOCK):
+    if y0 is None:
+        y = torch.zeros((num_factors, num_sims), dtype=torch.float32, device=device)
+    else:
+        y = y0
+    for b0 in range(step0, step0 + num_steps, _DRAW_BLOCK):
         z_b = _block_normals(key, b0, num_factors, num_sims, antithetic, device)
-        for c in range(min(_DRAW_BLOCK, n - b0)):
+        for c in range(min(_DRAW_BLOCK, step0 + num_steps - b0)):
             k = b0 + c
             # Exact OU update: decay + correlated increment, the rank-F
             # contraction written out (F is tiny).
@@ -255,8 +263,112 @@ def simulate_factor_paths_reference(
             for f in range(1, num_factors):
                 inc = inc + chol[k, :, f, None] * z_b[c, f]
             y = decay[k, :, None] * y + inc
-            out[k] = y
+            yield k - step0, y
         del z_b
+
+
+def simulate_factor_paths_reference(
+    coeffs: SimCoefficients,
+    num_sims: int,
+    key: Tuple[int, int],
+    antithetic: bool = False,
+    device=None,
+    y0: Optional[torch.Tensor] = None,
+    step0: int = 0,
+    num_steps: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the path kernel: factor paths ``[n, F, S]``
+    (float32) on ``device`` for the threefry ``key``.  With ``y0``/``step0``/
+    ``num_steps``: the steps ``[step0, step0 + num_steps)`` of the horizon
+    entered with state ``y0 [F, S]`` (``step0`` a multiple of 16)."""
+    num_factors = coeffs.decay.shape[1]
+    if num_steps is None:
+        num_steps = coeffs.decay.shape[0] - step0
+    out = torch.empty((num_steps, num_factors, num_sims), dtype=torch.float32, device=device)
+    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, y0, step0, num_steps):
+        out[i] = y
+    return out
+
+
+def _num_checkpoints(num_steps: int, every: int) -> int:
+    return -(-num_steps // every)
+
+
+def factor_checkpoints_reference(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
+                                 antithetic: bool, every: int, device=None) -> torch.Tensor:
+    """Plain PyTorch version of the path kernel's checkpoint mode: the factor
+    states ENTERING steps ``0, every, 2 every, ...`` as ``[num_ckpt, F, S]``
+    (``every`` a multiple of 16)."""
+    n, num_factors = coeffs.decay.shape
+    num_ckpt = _num_checkpoints(n, every)
+    out = torch.zeros((num_ckpt, num_factors, num_sims), dtype=torch.float32, device=device)
+    last = (num_ckpt - 1) * every  # no state entered after it is kept
+    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, None, 0, last):
+        if (i + 1) % every == 0:
+            out[(i + 1) // every] = y
+    return out
+
+
+class _PathKernelTables(NamedTuple):
+    """What every launch of the path kernel over one horizon and key reads."""
+
+    keys: torch.Tensor  # [ceil(n / 16), 2] int32 view of the uint32 block keys
+    coef: torch.Tensor  # [n, F + F F] rows [decay | chol row-major]
+    num_steps: int
+    num_factors: int
+
+
+def _path_kernel_tables(coeffs: SimCoefficients, key: Tuple[int, int], device) -> _PathKernelTables:
+    """One key per 16-step draw block, hashed on the host (n / 16 of them), and
+    the per-step coefficient rows, on ``device``."""
+    n, num_factors = coeffs.decay.shape
+    # fold_in vectorised over the block starts: one hash of the counters (0, b0).
+    starts = torch.arange(0, n, _DRAW_BLOCK, dtype=torch.int64)
+    k0, k1 = threefry2x32(key[0], key[1], 0, starts)
+    keys = torch.stack([k0, k1], dim=1).numpy().astype(np.uint32)
+    coef = np.concatenate([coeffs.decay, coeffs.chol.reshape(n, -1)], axis=1).astype(np.float32)
+    return _PathKernelTables(torch.from_numpy(keys.view(np.int32)).to(device),
+                             torch.from_numpy(coef).to(device), n, num_factors)
+
+
+def _launch_path_sim(tables: _PathKernelTables, out: torch.Tensor, num_sims: int,
+                     antithetic: bool, y0: Optional[torch.Tensor] = None, step0: int = 0,
+                     num_steps: Optional[int] = None, every: int = 0) -> torch.Tensor:
+    """One launch of ``path_sim_kernel`` into ``out`` (CUDA only): the steps
+    ``[step0, step0 + num_steps)`` entered with ``y0`` (None: zeros); paths
+    when ``every`` is 0, else the checkpoints every ``every`` steps."""
+    from ..ops import count_launch
+    from ..ops.csrc import check_launch, check_operand, kernels
+
+    device = out.device
+    if device.type != "cuda":
+        raise ValueError(f"the path kernel needs a CUDA device (got {device}); it never runs "
+                         "on the CPU")
+    F = tables.num_factors
+    if num_steps is None:
+        num_steps = tables.num_steps - step0
+    if step0 % _DRAW_BLOCK or every % _DRAW_BLOCK:
+        raise ValueError(f"step0 ({step0}) and every ({every}) must be multiples of "
+                         f"{_DRAW_BLOCK}.")
+    if not 0 <= step0 <= step0 + num_steps <= tables.num_steps:
+        raise ValueError(f"steps [{step0}, {step0 + num_steps}) lie outside the horizon "
+                         f"of {tables.num_steps} steps.")
+    rows = _num_checkpoints(num_steps, every) if every else num_steps
+    check_operand("out", out, (rows, F, num_sims))
+    if y0 is not None:
+        check_operand("y0", y0, (F, num_sims))
+    if out.numel() == 0:
+        return out
+    draw_sims = (num_sims + 1) // 2 if antithetic else num_sims
+    if _DRAW_BLOCK * F * draw_sims >= 2**32:
+        raise ValueError("random_bits supports fewer than 2**32 elements.")
+    with torch.cuda.device(device):
+        err = kernels().path_sim_launch(
+            tables.keys.data_ptr(), tables.coef.data_ptr(),
+            None if y0 is None else y0.data_ptr(), out.data_ptr(), num_sims, draw_sims, step0,
+            num_steps, F, every, torch.cuda.current_stream(device).cuda_stream)
+    check_launch("path_sim", err)
+    count_launch("path_sim")
     return out
 
 
@@ -264,33 +376,10 @@ def _simulate_factor_paths_cuda(coeffs: SimCoefficients, num_sims: int, key: Tup
                                 antithetic: bool, device) -> torch.Tensor:
     """Launch ``path_sim_kernel`` (CUDA devices only): one thread per drawn
     sim, one launch per path set."""
-    from ..ops import count_launch
-    from ..ops.csrc import check_launch, kernels
-
     device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the path kernel needs a CUDA device (got {device}); it never runs "
-                         "on the CPU")
     n, num_factors = coeffs.decay.shape
     out = torch.empty((n, num_factors, num_sims), dtype=torch.float32, device=device)
-    if out.numel() == 0:
-        return out
-    draw_sims = (num_sims + 1) // 2 if antithetic else num_sims
-    if _DRAW_BLOCK * num_factors * draw_sims >= 2**32:
-        raise ValueError("random_bits supports fewer than 2**32 elements.")
-    # One key per 16-step draw block, hashed here (n / 16 of them); the
-    # per-step coefficients as rows [decay (F) | chol (F x F, row-major)].
-    keys = np.array([fold_in(key, b0) for b0 in range(0, n, _DRAW_BLOCK)], dtype=np.uint32)
-    coef = np.concatenate([coeffs.decay, coeffs.chol.reshape(n, -1)], axis=1).astype(np.float32)
-    keys_dev = torch.from_numpy(keys.view(np.int32)).to(device)
-    coef_dev = torch.from_numpy(coef).to(device)
-    with torch.cuda.device(device):
-        err = kernels().path_sim_launch(
-            keys_dev.data_ptr(), coef_dev.data_ptr(), out.data_ptr(), num_sims, draw_sims, n,
-            num_factors, torch.cuda.current_stream(device).cuda_stream)
-    check_launch("path_sim", err)
-    count_launch("path_sim")
-    return out
+    return _launch_path_sim(_path_kernel_tables(coeffs, key, device), out, num_sims, antithetic)
 
 
 def simulate_factor_paths(
@@ -299,22 +388,127 @@ def simulate_factor_paths(
     seed: Optional[int] = None,
     antithetic: bool = False,
     key: Optional[Tuple[int, int]] = None,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Simulate Markov factor state paths ``[n, F, S]`` (float32) on ``device``.
 
     Draws are those of the JAX package for the same threefry key: the
-    default key is ``prng_key(seed)``.  A CUDA device goes to the kernel; the
-    CPU (``device`` None or ``"cpu"``) to
-    :func:`simulate_factor_paths_reference`.
+    default key is ``prng_key(seed)``.  A CUDA device goes to the kernel;
+    ``device="cpu"`` to :func:`simulate_factor_paths_reference`.
     """
     if key is None:
         if seed is None:
             seed = np.random.SeedSequence().entropy % (2**63)
         key = prng_key(int(seed))
-    if device is None or torch.device(device).type == "cpu":
+    if torch.device(device).type == "cpu":
         return simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, device)
     return _simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, device)
+
+
+class StreamingFactorSource:
+    """Factor paths regenerated per time-span from checkpointed OU states.
+
+    At hourly granularity x production path counts the full ``[n, F, S]``
+    factor array does not fit the device (2 years hourly x 250k paths =
+    52.6 GB), so the engine consumes paths span by span: one checkpoint pass
+    stores the OU state entering each span, and each span is re-simulated on
+    demand — checkpointed rematerialisation, trading one extra pass of the
+    simulation arithmetic for O(n / every) memory.  Because normal draws are
+    keyed per fixed 16-step block (see ``_block_normals``), the regenerated
+    paths equal the one-launch paths bit for bit for the same key.
+
+    Peak factor memory: one ``[every, F, S]`` span + ``[n / every, F, S]``
+    checkpoints.  ``every`` is rounded up to a multiple of 16.  On a CUDA
+    device the checkpoint pass and each span are one launch of the path
+    kernel; ``device="cpu"`` runs the plain versions.
+    """
+
+    def __init__(self, coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
+                 antithetic: bool = False, every: int = 512, device="cuda"):
+        self.num_steps = int(coeffs.decay.shape[0])
+        self.num_factors = int(coeffs.decay.shape[1])
+        self.num_sims = int(num_sims)
+        self.antithetic = bool(antithetic)
+        self.every = max(_DRAW_BLOCK, -(-int(every) // _DRAW_BLOCK) * _DRAW_BLOCK)
+        self.device = torch.device(device)
+        self._key = key
+        self._coeffs = coeffs
+        self._tables = None  # the kernel's keys and coefficient rows, uploaded once
+        self._ckpts = None  # computed on first use
+        self._span_cache = None  # (span_index, [span_len, F, S]) one-slot
+
+    def prepare(self) -> "StreamingFactorSource":
+        """Eagerly run the checkpoint pass (otherwise lazy on first read), so
+        that callers can attribute the upfront simulation cost to their own
+        timing phase.  Returns ``self`` for chaining."""
+        self._checkpoints()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def spans(self):
+        """The aligned spans [(a, b), ...] covering [0, num_steps)."""
+        return [(a, min(a + self.every, self.num_steps))
+                for a in range(0, self.num_steps, self.every)]
+
+    def _on_card(self) -> bool:
+        if self.device.type == "cpu":
+            return False
+        if self._tables is None:
+            self._tables = _path_kernel_tables(self._coeffs, self._key, self.device)
+        return True
+
+    def _checkpoints(self) -> torch.Tensor:
+        if self._ckpts is None:
+            if self._on_card():
+                out = torch.empty(
+                    (_num_checkpoints(self.num_steps, self.every), self.num_factors,
+                     self.num_sims), dtype=torch.float32, device=self.device)
+                self._ckpts = _launch_path_sim(self._tables, out, self.num_sims,
+                                               self.antithetic, every=self.every)
+            else:
+                self._ckpts = factor_checkpoints_reference(
+                    self._coeffs, self.num_sims, self._key, self.antithetic, self.every,
+                    self.device)
+        return self._ckpts
+
+    def factors(self, a: int, b: int) -> torch.Tensor:
+        """``[b - a, F, S]`` factor states for steps [a, b).
+
+        ``[a, b)`` must lie within one aligned span (the engine iterates
+        :meth:`spans`), so each call re-simulates at most one span.
+        """
+        i = a // self.every
+        s0, s1 = i * self.every, min((i + 1) * self.every, self.num_steps)
+        if not (s0 <= a < b <= s1):
+            raise ValueError(f"factors({a}, {b}) crosses a span boundary (every={self.every}).")
+        # One-slot span cache: the engine reads a span, sub-spans of it and
+        # last() (one step of the final span) consecutively, so memoizing the
+        # last regenerated span removes all redundant re-simulation at the
+        # cost of one resident span.
+        if self._span_cache is not None and self._span_cache[0] == i:
+            out = self._span_cache[1]
+        else:
+            # Drop the stale span BEFORE materialising the next one: holding
+            # both would transiently double the streamed-path footprint that
+            # the path budget sized to ONE [span, F, S] block.
+            self._span_cache = None
+            y0 = self._checkpoints()[i]
+            if self._on_card():
+                out = torch.empty((s1 - s0, self.num_factors, self.num_sims),
+                                  dtype=torch.float32, device=self.device)
+                _launch_path_sim(self._tables, out, self.num_sims, self.antithetic, y0=y0,
+                                 step0=s0, num_steps=s1 - s0)
+            else:
+                out = simulate_factor_paths_reference(
+                    self._coeffs, self.num_sims, self._key, self.antithetic, self.device,
+                    y0=y0, step0=s0, num_steps=s1 - s0)
+            self._span_cache = (i, out)
+        return out[a - s0:b - s0]
+
+    def last(self) -> torch.Tensor:
+        """``[F, S]`` — the factor state of the final simulated period."""
+        return self.factors(self.num_steps - 1, self.num_steps)[0]
 
 
 def spots_from_factor_paths(factors: torch.Tensor, vols: torch.Tensor,
@@ -322,3 +516,28 @@ def spots_from_factor_paths(factors: torch.Tensor, vols: torch.Tensor,
     """Spot-price panel ``[n, S]`` from factor paths (deterministic transform)."""
     log_spots = torch.einsum("nf,nfs->ns", vols, factors) + log_fwd_drift[:, None]
     return torch.exp(log_spots)
+
+
+def simulate_spot_paths(
+    coeffs: SimCoefficients,
+    num_sims: int,
+    seed: Optional[int],
+    antithetic: bool = False,
+    key: Optional[Tuple[int, int]] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Simulate spot paths and Markov factor states.
+
+    Equivalent of ``MultiFactorSpotPriceSimulator.Simulate(numSims)``; the
+    threefry ``seed`` replaces the reference's ``MersenneTwisterGenerator``
+    seed (``multi_factor.py:76-80``).
+
+    Returns:
+      spots ``[n, S]``, factors ``[n, F, S]`` on ``device``.
+    """
+    factors = simulate_factor_paths(coeffs, num_sims, seed, antithetic, key, device)
+    dev = factors.device
+    spots = spots_from_factor_paths(
+        factors, torch.as_tensor(coeffs.vols, dtype=torch.float32).to(dev),
+        torch.as_tensor(coeffs.log_fwd_drift, dtype=torch.float32).to(dev))
+    return spots, factors

@@ -134,7 +134,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.forward_sim_blocks.restype = i
     lib.forward_sim_row_pitch.argtypes = [i]
     lib.forward_sim_row_pitch.restype = i
-    lib.path_sim_launch.argtypes = [p, p, p, ll, ll, i, i, p]
+    lib.path_sim_launch.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
     lib.path_sim_launch.restype = i
     lib.storage_kernels_error_string.argtypes = [i]
     lib.storage_kernels_error_string.restype = ctypes.c_char_p

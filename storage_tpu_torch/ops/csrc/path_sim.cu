@@ -2,9 +2,19 @@
 // map and the exact OU update, fused into one kernel.
 //
 // Replaces storage_tpu/models/simulation.py::simulate_factor_paths (:264, its
-// jitted body _simulate_factor_kernel): XLA code in the JAX package, not a
-// Pallas kernel. Plain PyTorch version:
-// storage_tpu_torch/models/simulation.py::simulate_factor_paths_reference.
+// jitted body _simulate_factor_kernel) and, for horizons whose paths do not
+// fit the device, _factor_checkpoints_kernel (:293) and _factor_span_kernel
+// (:325): XLA code in the JAX package, not a Pallas kernel. Plain PyTorch
+// versions: storage_tpu_torch/models/simulation.py::
+// simulate_factor_paths_reference and factor_checkpoints_reference.
+//
+// Three uses, one kernel: the whole horizon from y = 0 (one launch per path
+// set); a checkpoint pass that walks the whole horizon but writes only the
+// state entering every `every`-th step; and one span [step0, step0 + n) from
+// a checkpointed entering state. A span regenerated from its checkpoint
+// equals the same steps of the one-launch paths bit for bit: the draws
+// depend only on the key and the absolute step, the state is carried in
+// float32 either way.
 //
 // What it computes. Steps are drawn in blocks of 16; block b0's key is
 // fold_in(key, b0), hashed on the host (n / 16 pairs). Element
@@ -37,7 +47,8 @@
 // 4.6 ms. The float work (the map, log1pf, the square root, 16 Horner
 // operations, 2F + 1 for the OU update) is ~35 operations per element,
 // 0.5 ms at 67 TFLOP/s, on another pipe. So integer operations bound it,
-// not bytes.
+// not bytes. The checkpoint pass does the same operations and writes 1 / every
+// of the bytes.
 //
 // Design. One thread per drawn sim, looping over all n steps with y[F] in
 // registers: no temporaries in device memory, no shared memory, no
@@ -108,12 +119,37 @@ __device__ __forceinline__ float normal_from_bits(uint32_t bits) {
   return __fmul_rn(erf_inv_rn(u), 0x1.6a09e6p+0f);  // float32(sqrt(2))
 }
 
+// 0 - y: the antithetic partner's state. The plain version computes the
+// partner from -z on its own, so an exactly zero state (every sim's at step
+// 0) is +0 there for both sims of a pair; -y would write -0.
+__device__ __forceinline__ float mirrored(float y) { return __fsub_rn(0.0f, y); }
+
+// One state [F, S] written at dst: sim s and, where it has one, its partner.
 template <int kF>
+__device__ __forceinline__ void store_state(float* __restrict__ dst, const float (&y)[kF],
+                                            long long num_sims, uint32_t s, uint32_t draw_sims,
+                                            bool mirror) {
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    dst[(size_t)f * num_sims + s] = y[f];
+    if (mirror) dst[(size_t)f * num_sims + s + draw_sims] = mirrored(y[f]);
+  }
+}
+
+// kCheckpoints false: writes every step's state, out [num_steps, F, S].
+// kCheckpoints true: writes only the state ENTERING local steps 0, every,
+// 2 every, ... into out [ceil(num_steps / every), F, S] and stops at the last
+// of them. Steps are absolute: local step i is step step0 + i of the horizon
+// (step0 a multiple of kDrawBlock), which picks the block key and the
+// coefficient row; y0 (null: zeros) is the state entering step0. Only
+// y0[f, s] of the drawn sims is read: the partner's state is its negative.
+template <int kF, bool kCheckpoints>
 __global__ void __launch_bounds__(kSimThreads)
-    path_sim_kernel(const uint32_t* __restrict__ keys,  // [ceil(n / 16), 2] block keys
-                    const float* __restrict__ coef,     // [n, F + F F] decay, then chol row-major
-                    float* __restrict__ out,            // [n, F, S]
-                    long long num_sims, uint32_t draw_sims, int num_steps) {
+    path_sim_kernel(const uint32_t* __restrict__ keys,  // [ceil(N / 16), 2] block keys, whole horizon
+                    const float* __restrict__ coef,     // [N, F + F F] decay, then chol row-major
+                    const float* __restrict__ y0,       // [F, S] or null
+                    float* __restrict__ out, long long num_sims, uint32_t draw_sims, int step0,
+                    int num_steps, int every) {
   const uint32_t s = blockIdx.x * (uint32_t)kSimThreads + threadIdx.x;
   if (s >= draw_sims) return;
   // The antithetic partner s + S' (draw_sims < num_sims only in that mode).
@@ -121,9 +157,22 @@ __global__ void __launch_bounds__(kSimThreads)
   constexpr int kRow = kF + kF * kF;
   float y[kF];
 #pragma unroll
-  for (int f = 0; f < kF; ++f) y[f] = 0.0f;
+  for (int f = 0; f < kF; ++f) y[f] = y0 != nullptr ? y0[(size_t)f * num_sims + s] : 0.0f;
   uint32_t ks[3] = {0u, 0u, 0u};
-  for (int k = 0; k < num_steps; ++k) {
+  // Checkpoint mode stops at the last checkpoint (a multiple of `every`,
+  // written after the loop): the steps after it enter no state that is kept.
+  const int last = kCheckpoints ? ((num_steps - 1) / every) * every : num_steps;
+  int until_ckpt = 0;  // steps until the next checkpoint
+  for (int i = 0; i < last; ++i) {
+    if (kCheckpoints) {
+      if (until_ckpt == 0) {
+        store_state<kF>(out + (size_t)(i / every) * kF * num_sims, y, num_sims, s, draw_sims,
+                        mirror);
+        until_ckpt = every;
+      }
+      --until_ckpt;
+    }
+    const int k = step0 + i;
     const int c = k % kDrawBlock;
     if (c == 0) {
       ks[0] = __ldg(keys + 2 * (k / kDrawBlock));
@@ -144,10 +193,30 @@ __global__ void __launch_bounds__(kSimThreads)
         inc = __fadd_rn(inc, __fmul_rn(__ldg(row + kF + f * kF + g), z[g]));
       }
       y[f] = __fadd_rn(__fmul_rn(__ldg(row + f), y[f]), inc);
-      float* dst = out + ((size_t)k * kF + f) * num_sims;
-      dst[s] = y[f];
-      if (mirror) dst[(size_t)s + draw_sims] = -y[f];
+      if (!kCheckpoints) {
+        float* dst = out + ((size_t)i * kF + f) * num_sims;
+        dst[s] = y[f];
+        if (mirror) dst[(size_t)s + draw_sims] = mirrored(y[f]);
+      }
     }
+  }
+  if (kCheckpoints) {
+    store_state<kF>(out + (size_t)(last / every) * kF * num_sims, y, num_sims, s, draw_sims,
+                    mirror);
+  }
+}
+
+template <int kF>
+static void launch_path_sim(bool checkpoints, unsigned blocks, cudaStream_t st,
+                            const uint32_t* keys, const float* coef, const float* y0, float* out,
+                            long long num_sims, uint32_t draw_sims, int step0, int num_steps,
+                            int every) {
+  if (checkpoints) {
+    path_sim_kernel<kF, true><<<blocks, kSimThreads, 0, st>>>(keys, coef, y0, out, num_sims,
+                                                              draw_sims, step0, num_steps, every);
+  } else {
+    path_sim_kernel<kF, false><<<blocks, kSimThreads, 0, st>>>(keys, coef, y0, out, num_sims,
+                                                               draw_sims, step0, num_steps, every);
   }
 }
 
@@ -157,23 +226,29 @@ using namespace storage_kernels;
 
 // Launches path_sim_kernel on `stream`: `draw_sims` threads, each writing
 // sim s and, where s + draw_sims < num_sims, its antithetic partner.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int path_sim_launch(const uint32_t* keys, const float* coef, float* out,
-                               long long num_sims, long long draw_sims, int num_steps,
-                               int num_factors, void* stream) {
+// `keys` and `coef` cover the whole horizon; the launch runs steps
+// [step0, step0 + num_steps) from the entering state `y0` (null: zeros).
+// `every` == 0 writes the paths, out [num_steps, F, S]; `every` > 0 (a
+// multiple of 16) writes only the checkpoints, out [ceil(num_steps / every),
+// F, S]. Returns the cudaError_t of the launch (0 on success).
+extern "C" int path_sim_launch(const uint32_t* keys, const float* coef, const float* y0,
+                               float* out, long long num_sims, long long draw_sims, int step0,
+                               int num_steps, int num_factors, int every, void* stream) {
   if (num_factors < 1 || num_factors > kMaxFactors || num_steps < 1 || draw_sims < 1 ||
-      draw_sims > num_sims || num_sims > 2 * draw_sims ||
+      draw_sims > num_sims || num_sims > 2 * draw_sims || step0 < 0 ||
+      step0 % kDrawBlock != 0 || every < 0 || every % kDrawBlock != 0 ||
       (long long)kDrawBlock * num_factors * draw_sims >= (1LL << 32)) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned blocks = (unsigned)((draw_sims + kSimThreads - 1) / kSimThreads);
   const cudaStream_t st = (cudaStream_t)stream;
   const uint32_t ds = (uint32_t)draw_sims;
+  const bool ck = every > 0;
   switch (num_factors) {
-    case 1: path_sim_kernel<1><<<blocks, kSimThreads, 0, st>>>(keys, coef, out, num_sims, ds, num_steps); break;
-    case 2: path_sim_kernel<2><<<blocks, kSimThreads, 0, st>>>(keys, coef, out, num_sims, ds, num_steps); break;
-    case 3: path_sim_kernel<3><<<blocks, kSimThreads, 0, st>>>(keys, coef, out, num_sims, ds, num_steps); break;
-    default: path_sim_kernel<4><<<blocks, kSimThreads, 0, st>>>(keys, coef, out, num_sims, ds, num_steps); break;
+    case 1: launch_path_sim<1>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+    case 2: launch_path_sim<2>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+    case 3: launch_path_sim<3>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+    default: launch_path_sim<4>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
   }
   return (int)cudaGetLastError();
 }

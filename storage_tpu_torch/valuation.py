@@ -6,12 +6,15 @@ intrinsic calculation first, then the LSMC engine on simulated paths, and
 returns NPV, per-period deltas, the expected storage profile, trigger prices,
 trigger volume/price profiles and (``return_sim_panels``, the default) the
 per-sim panels.  The device work runs on ``device`` (default ``"cuda"``):
-the two LSMC kernels launch there.  ``on_progress_update``/``cancelled``
-run the engine span by span with the hooks between spans.
+the LSMC and path kernels launch there.  ``on_progress_update``/``cancelled``
+run the engine span by span with the hooks between spans.  A path set larger
+than the budget of ``STORAGE_TPU_MAX_PATH_BYTES`` (default 6e9) is streamed:
+regenerated span by span from checkpointed factor states, never held whole.
 """
 from __future__ import annotations
 
 import logging
+import os
 from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -29,7 +32,9 @@ from .models.multi_factor import (
     create_3_factor_season_params,
     validate_multi_factor_params,
 )
-from .models.simulation import fold_in, prng_key, simulate_factor_paths, spots_from_factor_paths
+from .models.simulation import (
+    StreamingFactorSource, fold_in, prng_key, simulate_factor_paths, spots_from_factor_paths,
+)
 from .ops.regression import basis_spec
 from .storage import CmdtyStorage
 from .types import TriggerPricePoint, TriggerPriceProfile
@@ -38,6 +43,17 @@ from .utils.frequencies import PeriodLike, normalize_freq, to_period
 from .utils.profiling import Stopwatches
 
 logger: logging.Logger = logging.getLogger("storage_tpu_torch.multi_factor")
+
+# Factor paths past this many bytes per path set are streamed (regenerated
+# span by span from checkpoints) instead of materialised.  The variable's
+# name is the JAX package's, so one setting governs both.
+MAX_PATH_BYTES_ENV = "STORAGE_TPU_MAX_PATH_BYTES"
+DEFAULT_MAX_PATH_BYTES = 6e9
+# Longest streamed span, in steps.  The JAX package caps its spans at the
+# 256 steps its forward kernel's on-chip memory allows; the CUDA kernels
+# have no such limit, but the spans fix which periods are solved directly,
+# so the same cap keeps NPV and progress values those of the JAX package.
+STREAM_MAX_SPAN = 256
 
 
 class MultiFactorValuationResults(NamedTuple):
@@ -164,6 +180,15 @@ def multi_factor_value(
     )
 
 
+def _stream_span_length(max_path_bytes: float, per_step_bytes: int) -> int:
+    """Steps per streamed span: ~1 GB of regenerated factors (and never more
+    than a quarter of the budget, so a tiny budget still gives several
+    spans), at least 64 and at most ``STREAM_MAX_SPAN`` steps.  The source
+    rounds it up to a multiple of 16."""
+    span_target = min(1e9, max_path_bytes / 4)
+    return min(max(64, int(span_target // max(per_step_bytes, 1))), STREAM_MAX_SPAN)
+
+
 def _check_slice_options(dtype, mesh) -> None:
     """Options of the JAX API that this port does not run yet raise, naming
     the ROADMAP item that ports them."""
@@ -264,15 +289,45 @@ def _multi_factor_calc(
     sim_vols = torch.as_tensor(coeffs.vols, dtype=torch.float32).to(device)
     sim_drift = torch.as_tensor(coeffs.log_fwd_drift, dtype=torch.float32).to(device)
 
-    def simulate(key, phase, name):
-        with stopwatches.time(phase):
-            f = simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
-                                      device=device)
-            if stopwatches.sync:
-                stopwatches.synchronize()
-        if return_sim_panels:
-            sims_cache[name] = spots_from_factor_paths(f, sim_vols, sim_drift)
-        return f
+    # Long-horizon x production-path configs (e.g. multi-year hourly) cannot
+    # materialise the full [m+1, F, S] factor tensor on the device; past this
+    # budget the engine streams paths span by span from checkpointed OU
+    # states (the same draws bit for bit, see StreamingFactorSource).  Per-sim
+    # panels are incompatible with streaming (they are O(n x S) themselves).
+    per_step_bytes = len(factors) * num_sims * 4  # float32
+    path_bytes = len(sim_periods) * per_step_bytes
+    max_path_bytes = int(float(os.environ.get(MAX_PATH_BYTES_ENV, DEFAULT_MAX_PATH_BYTES)))
+    streaming = path_bytes > max_path_bytes
+    if streaming and return_sim_panels:
+        raise ValueError(
+            f"return_sim_panels=True requires materialising O(n_steps x "
+            f"num_sims) panels, but this configuration's factor paths alone "
+            f"({path_bytes / 1e9:.1f} GB) exceed the device budget "
+            f"({max_path_bytes / 1e9:.1f} GB, {MAX_PATH_BYTES_ENV}); "
+            "pass return_sim_panels=False."
+        )
+    if streaming:
+        every = _stream_span_length(max_path_bytes, per_step_bytes)
+
+        # The simulation stopwatches time the upfront CHECKPOINT pass only:
+        # per-span regeneration is interleaved with consumption, so that part
+        # of the simulation cost folds into BackwardInduction /
+        # ForwardSimulation (unlike the materialised path's stopwatches).
+        def simulate(key, phase, name):
+            logger.info("Streaming %s path simulation (span=%d).", name, every)
+            with stopwatches.time(phase):
+                return StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
+                                             device=device).prepare()
+    else:
+        def simulate(key, phase, name):
+            with stopwatches.time(phase):
+                f = simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
+                                          device=device)
+                if stopwatches.sync:
+                    stopwatches.synchronize()
+            if return_sim_panels:
+                sims_cache[name] = spots_from_factor_paths(f, sim_vols, sim_drift)
+            return f
 
     logger.info("Calculating LSMC value.")
     arrays = run_lsmc(

@@ -4,7 +4,8 @@
 ``ValuationContext`` as ``storage_tpu.compile.build_valuation_context`` on
 the same inputs: the headline case (``bench.py::build_case``), the README
 example's storage (the same facility valued on another curve) and the
-reference-golden storage (constant rates, valued before its start).
+reference-golden storage (constant rates, valued before its start), and
+the hourly case of ``benchmarks/hourly_bench.py`` at its full 17,520 steps.
 Arrays are compared exactly, except the reduced inventory space and the
 grids built on it, which the JAX package may compute in its C++ host path
 (another arithmetic order): those to 1e-12 relative.
@@ -21,7 +22,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import storage_tpu as jax_pkg  # noqa: E402
 import storage_tpu_torch as torch_pkg  # noqa: E402
-from chip_smoke import build_case  # noqa: E402
+from chip_smoke import build_case, build_hourly_case  # noqa: E402
 from storage_tpu.compile import build_valuation_context as jax_build  # noqa: E402
 from storage_tpu_torch.compile import build_valuation_context as torch_build  # noqa: E402
 
@@ -66,7 +67,13 @@ def _golden(pkg):
     return (storage, val_date, 0.0, fwd, ir, rule, 100, 1e-12)
 
 
-@pytest.mark.parametrize("case", [_headline, _readme, _golden], ids=["headline", "readme", "golden"])
+def _hourly(pkg):
+    storage, fwd = build_hourly_case(pkg)
+    return (storage, "2021-01-01", 1500.0, fwd, 0.01, None, 100, 1e-12)
+
+
+@pytest.mark.parametrize("case", [_headline, _readme, _golden, _hourly],
+                         ids=["headline", "readme", "golden", "hourly"])
 def test_valuation_context_matches_jax(case):
     ref = jax_build(*case(jax_pkg))
     got = torch_build(*case(torch_pkg))
@@ -92,3 +99,21 @@ def test_storage_arrays_match_jax():
     assert len(got.pillar_tables) == len(ref.pillar_tables)
     assert all(np.array_equal(a, b) for a, b in zip(got.pillar_tables, ref.pillar_tables))
     assert got.must_be_empty_at_end == ref.must_be_empty_at_end
+
+
+def test_interop_context_at_hourly_depth():
+    """``interop.context_from_numpy`` carries a 17,520-step context across
+    array by array (no per-step Python work: it takes milliseconds)."""
+    import time
+
+    from storage_tpu_torch.interop import context_from_numpy
+
+    ref = jax_build(*_hourly(jax_pkg))
+    t0 = time.perf_counter()
+    got = context_from_numpy(ref)
+    elapsed = time.perf_counter() - t0
+    assert got.n_steps == ref.n_steps == 17_520 and got.periods.equals(ref.periods)
+    for name in EXACT_ARRAYS + ("grids",):
+        assert np.array_equal(getattr(got, name), np.asarray(getattr(ref, name))), name
+    assert np.array_equal(got.inv_space.max_inventory, ref.inv_space.max_inventory)
+    assert elapsed < 1.0, f"context_from_numpy took {elapsed:.2f} s for 17,520 steps"

@@ -13,7 +13,8 @@ per-sim panels, D = 7 decisions (``extra_decisions=2``) and POLY ratchets
 whose pillar tables are zero-padded to a common height, sim counts below
 and across its 256-sim tiles, a span of one step, and bit-identical reruns.  The path
 kernel must equal its plain version bit for bit (it rounds every step as
-the torch ops do).  Rounding differs
+the torch ops do), also span by span from checkpointed states and in its
+checkpoint mode.  Rounding differs
 between a kernel and its plain version (FMA contraction), so near-tie
 decisions may flip; flips are counted and bounded like ``chip_smoke.py``
 bounds them (<= 1e-4 of the paths per decision; panels and final
@@ -317,6 +318,61 @@ def test_path_sim_equals_plain(cuda, num_factors, n, antithetic):
     assert got.shape == (n, num_factors, num_sims)
     assert torch.equal(got, ref)
     assert torch.equal(got, again)
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and bool((a.view(torch.int32) == b.view(torch.int32)).all())
+
+
+@pytest.mark.parametrize("num_factors,n,num_sims,antithetic,every", [
+    (1, 70, 10_001, False, 16), (2, 70, 10_001, True, 32), (3, 103, 4_097, True, 32),
+    (4, 70, 10_001, True, 16), (3, 100, 10_000, False, 64), (3, 520, 1_001, True, 256),
+    (2, 33, 257, True, 16), (3, 300, 2_049, False, 512),
+], ids=["F1", "F2-antithetic", "F3-antithetic-odd", "F4-antithetic", "F3-short-tail",
+        "every256", "tail-of-1", "one-span"])
+def test_path_sim_spans_equal_one_launch(cuda, num_factors, n, num_sims, antithetic, every):
+    """The path kernel's new modes, bit for bit: spans resumed from
+    checkpointed entering states (a first step past 0, a tail span shorter
+    than a draw block, odd sim counts with an unpaired antithetic sim)
+    equal the one-launch paths; the checkpoint pass equals the plain
+    checkpoint function; each is one launch."""
+    coeffs = _sim_coefficients(num_factors, n)
+    key = simulation.fold_in(simulation.prng_key(12), 1)
+    mono = simulation.simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
+                                            device=cuda)
+    src = simulation.StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
+                                           device=cuda)
+    reset_launch_counts()
+    src.prepare()
+    assert launch_counts()["path_sim"] == 1
+    ckpts = simulation.factor_checkpoints_reference(coeffs, num_sims, key, antithetic,
+                                                    src.every, cuda)
+    assert _bits_equal(src._checkpoints(), ckpts)
+    spans = src.spans()
+    stream = torch.cat([src.factors(a, b).clone() for a, b in spans])
+    assert launch_counts()["path_sim"] == 1 + len(spans)
+    assert _bits_equal(stream, mono)
+    assert _bits_equal(src.last(), mono[-1])
+    assert launch_counts()["path_sim"] == 1 + len(spans)  # the final span is cached
+    # The plain version resumed from the same checkpoint gives the same span.
+    a, b = spans[-1]
+    plain = simulation.simulate_factor_paths_reference(
+        coeffs, num_sims, key, antithetic, cuda, y0=ckpts[-1], step0=a, num_steps=b - a)
+    torch.cuda.synchronize()
+    assert _bits_equal(plain, mono[a:b])
+
+
+def test_path_sim_refuses_unaligned_first_step(cuda):
+    coeffs = _sim_coefficients(2, 40)
+    tables = simulation._path_kernel_tables(coeffs, simulation.prng_key(1), cuda)
+    out = torch.empty((8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        simulation._launch_path_sim(tables, out, 64, False, step0=8, num_steps=8)
+    # The launcher itself refuses it too (and an `every` off the draw blocks).
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for step0, every in ((8, 0), (0, 24)):
+        assert kernels().path_sim_launch(tables.keys.data_ptr(), tables.coef.data_ptr(), None,
+                                         out.data_ptr(), 64, 64, step0, 8, 2, every, stream) != 0
 
 
 def test_path_sim_refuses_five_factors(cuda):

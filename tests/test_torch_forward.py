@@ -63,7 +63,9 @@ def results():
                                   bnpv, discount_deltas=True, collect_panels=False, **statics)
 
     tdev = tl.device_inputs(context_from_numpy(ctx), "cpu")
-    policy = lsmc_policy_from_numpy(coeffs, mus, sds, vbars)
+    policy = lsmc_policy_from_numpy(dict(coeffs=coeffs, mus=mus, sds=sds, vbars=vbars,
+                                         cont_mean0=cont_mean0, backward_npv=bnpv),
+                                    device="cpu")[:4]
     got = tl._forward_program(
         torch.from_numpy(np.array(val)), torch.tensor(sim.vols, dtype=torch.float32),
         torch.tensor(sim.log_fwd_drift, dtype=torch.float32),

@@ -48,6 +48,13 @@ from storage_tpu_torch.ops.regression import BasisSpec  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+def _policy(coeffs, mus, sds, vbars, cont_mean0, bnpv):
+    """The four per-step tensors of the JAX policy, through the port's interop."""
+    return lsmc_policy_from_numpy(dict(coeffs=coeffs, mus=mus, sds=sds, vbars=vbars,
+                                       cont_mean0=cont_mean0, backward_npv=bnpv),
+                                  device="cpu")[:4]
+
 SIMS, GRID, VAL_SIMS = 2048, 40, 8192
 NPV_RTOL, FWD_NPV_RTOL, PV_RTOL, MAX_FLIPS_PER_DECISION = 1e-4, 1e-5, 1e-4, 1e-4
 V_TOL, MAX_FLIPPED = 1e-4, 0.005
@@ -97,7 +104,7 @@ def test_forward_matches_jax(case):
     got = tl._forward_program(
         torch.from_numpy(np.array(case.val)), torch.tensor(case.sim.vols, dtype=torch.float32),
         torch.tensor(case.sim.log_fwd_drift, dtype=torch.float32),
-        torch.from_numpy(np.array(cont_mean0)), *lsmc_policy_from_numpy(coeffs, mus, sds, vbars),
+        torch.from_numpy(np.array(cont_mean0)), *_policy(coeffs, mus, sds, vbars, cont_mean0, bnpv),
         tl.device_inputs(context_from_numpy(case.ctx), "cpu"), torch.tensor(float(bnpv)),
         BasisSpec(*case.spec), case.ctx.interp_kind, GRID, case.extra,
         case.ctx.val_date_is_first_step, None, True)

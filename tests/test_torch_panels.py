@@ -44,6 +44,13 @@ from storage_tpu_torch.ops.regression import BasisSpec  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+def _policy(coeffs, mus, sds, vbars, cont_mean0, bnpv):
+    """The four per-step tensors of the JAX policy, through the port's interop."""
+    return lsmc_policy_from_numpy(dict(coeffs=coeffs, mus=mus, sds=sds, vbars=vbars,
+                                       cont_mean0=cont_mean0, backward_npv=bnpv),
+                                  device="cpu")[:4]
+
 SIMS, GRID, API_SIMS = 2048, 40, 8192
 PANEL_TOL, PV_RTOL, MAX_FLIPS_PER_DECISION = 1e-5, 1e-4, 1e-4
 SPOT_RTOL, NPV_RTOL = 1e-5, 1e-4
@@ -75,7 +82,7 @@ def programs():
     got = tl._forward_program(
         torch.from_numpy(np.array(val)), torch.tensor(sim.vols, dtype=torch.float32),
         torch.tensor(sim.log_fwd_drift, dtype=torch.float32),
-        torch.from_numpy(np.array(cont_mean0)), *lsmc_policy_from_numpy(coeffs, mus, sds, vbars),
+        torch.from_numpy(np.array(cont_mean0)), *_policy(coeffs, mus, sds, vbars, cont_mean0, bnpv),
         tl.device_inputs(context_from_numpy(ctx), "cpu"), torch.tensor(float(bnpv)),
         BasisSpec(*spec), ctx.interp_kind, GRID, 0, ctx.val_date_is_first_step, None, True,
         collect_panels=True)

@@ -151,7 +151,8 @@ PORT_SOURCES = sorted(p for p in (REPO / "storage_tpu_torch").rglob("*.py")
                       if "_build" not in p.parts)  # _build/ holds build outputs only
 
 
-@pytest.mark.parametrize("path", PORT_SOURCES + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_SOURCES + [REPO / "chip_smoke.py",
+                                                 REPO / "tools" / "kernel_turns.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     for name in _imports(path):

@@ -6,6 +6,7 @@ process, then trace one warm valuation.
     python3 tools/kernel_turns.py [--parent DIR] [--variant NAME=DIR ...]
                                   [--no-wall] [--no-trace] [--sass]
                                   [--out chiprun_out/kernel_turns.json]
+    python3 tools/kernel_turns.py --hourly [--out chiprun_out/hourly_trace.json]
 
 DIR (default ``storage_tpu_torch/_build/parent``, which git ignores) holds an
 earlier commit's ``forward_sim.cu`` and ``storage_kernels.cuh``, written
@@ -37,6 +38,13 @@ sims per thread, or one part taken out) and times it beside the others.
 ``--sass`` adds what the compiler made of the two kernels (``cuobjdump
 -sass`` of the current library): instructions in all, the loops (backward
 branches) with their sizes, and the commonest opcodes.
+
+``--hourly`` does none of the above: it builds the library, runs the streamed
+hourly case of ``chip_smoke.value_hourly`` (17,520 steps x 250,000 antithetic
+paths, a path budget of 1.5e9 bytes) once to warm up and once untraced with
+phase syncs, times the host compile, the intrinsic DP and its float64 sweep
+alone, and traces a third run (device activity only: the run makes ~2M
+launches), with the same summary as the trace above.
 
 Prints one line per measurement and writes them all to ``--out`` as JSON.
 Imports nothing of JAX.
@@ -223,26 +231,40 @@ def wall_turns(parent_fwd):
     return runs
 
 
-def trace(num_sims, seed):
-    """torch.profiler over one warm valuation of the headline case."""
+def trace(value=None, host_activity=True):
+    """torch.profiler over one warm valuation: ``value(profile_sink=...)``,
+    by default the headline case."""
     import torch
     import storage_tpu_torch as tt
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if value is None:
+        def value(**kw):
+            return chip_smoke.value_case(tt, chip_smoke.NUM_SIMS, chip_smoke.SEED,
+                                         device="cuda", **kw)
     phases = {}
 
     def sink(sw):
         phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_activity else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        res = chip_smoke.value_case(tt, num_sims, seed, device="cuda", profile_sink=sink)
+        res = value(profile_sink=sink)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA), key=lambda x: x[0])
+    # Device activities as (start us, end us, name).  Kineto's own event list
+    # is read where the profiler exposes it: prof.events() builds a Python
+    # tree of every event, which takes ten minutes for a run of 3M launches.
+    kineto = getattr(prof.profiler, "kineto_results", None)
+    if kineto is not None:
+        dev = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name()) for e in kineto.events()
+                     if e.device_type() == DeviceType.CUDA)
+    else:
+        dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
     out = dict(wall_s=wall, npv=res.npv, phases_s=phases, device_events=len(dev))
     if not dev:
         print("[trace] no device events in the trace")
@@ -288,6 +310,59 @@ def trace(num_sims, seed):
     return out
 
 
+def hourly(out_path, card):
+    """The streamed hourly case: a warm-up run, an untraced run with phase
+    syncs, its host-side parts alone, then a traced run."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.compile import build_valuation_context
+    from storage_tpu_torch.engines import intrinsic
+
+    def value(seed=chip_smoke.SEED, **kw):
+        with chip_smoke._path_budget(chip_smoke.HOURLY_BUDGET):
+            return chip_smoke.value_hourly(tt, chip_smoke.HOURLY_SIMS, seed, device="cuda", **kw)
+
+    t0 = time.perf_counter()
+    warm = value(seed=12)
+    torch.cuda.synchronize()
+    result = dict(card=card, device=torch.cuda.get_device_name(0),
+                  warm_s=time.perf_counter() - t0, warm_npv=warm.npv)
+    phases = {}
+    torch.cuda.reset_peak_memory_stats()
+    tt.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = value(profile_sink=lambda sw: phases.update(
+        {p: sw.elapsed(p) for p in sw.PHASES + ("All",)}))
+    torch.cuda.synchronize()
+    result.update(wall_s=time.perf_counter() - t0, npv=res.npv, phases_s=phases,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  host_peak_rss_gib=chip_smoke._host_peak_gib(), launches=tt.launch_counts())
+    print(f"[hourly] warm-up {result['warm_s']:.3f} s; untraced wall {result['wall_s']:.3f} s, "
+          f"NPV {res.npv:.4f}, peak {result['peak_gib']:.3f} GiB, host peak RSS "
+          f"{result['host_peak_rss_gib']:.3f} GiB, launches "
+          f"{result['launches']}, phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+
+    # "Other" split: the host compile, the intrinsic DP and its host sweep.
+    storage, fwd = chip_smoke.build_hourly_case(tt)
+    t0 = time.perf_counter()
+    ctx = build_valuation_context(storage, "2021-01-01", 1500.0, fwd, 0.01, None, 100, 1e-12)
+    t1 = time.perf_counter()
+    values = intrinsic._backward_values(ctx, np.zeros(100), 0, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    intrinsic._forward_sweep(ctx, values.astype(np.float64))
+    t3 = time.perf_counter()
+    result["host_parts_s"] = dict(compile=t1 - t0, intrinsic_dp=t2 - t1, intrinsic_sweep=t3 - t2)
+    print(f"[hourly] alone: host compile {t1 - t0:.3f} s, intrinsic DP {t2 - t1:.3f} s, "
+          f"its float64 sweep {t3 - t2:.3f} s")
+    result["trace"] = trace(value, host_activity=False)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(result, indent=1))
+    return result
+
+
 def sass_summary(fragment):
     """Instruction counts of the current library's kernel whose mangled name
     holds ``fragment``: total, loops (start, end, instructions), top opcodes."""
@@ -326,13 +401,25 @@ def main() -> int:
     ap.add_argument("--no-wall", action="store_true", help="skip the valuation turns")
     ap.add_argument("--no-trace", action="store_true", help="skip the profiler trace")
     ap.add_argument("--sass", action="store_true", help="summarise the kernels' machine code")
-    ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out/kernel_turns.json")
+    ap.add_argument("--hourly", action="store_true",
+                    help="only the streamed hourly case: untraced, its host parts, traced")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="default chiprun_out/kernel_turns.json (hourly_trace.json with --hourly)")
     opts = ap.parse_args()
+    if opts.out is None:
+        opts.out = ROOT / "chiprun_out" / ("hourly_trace.json" if opts.hourly
+                                           else "kernel_turns.json")
 
     import torch
     from storage_tpu_torch.ops import csrc, forward
 
     card = chip_smoke.phase_device()
+    if opts.hourly:
+        csrc.build()
+        csrc.kernels()
+        hourly(opts.out, card)
+        print(f"[card] {card}")
+        return 0
     variant_dirs = dict(v.split("=", 1) for v in opts.variant)
     t0 = time.perf_counter()
     csrc.build(True)
@@ -369,7 +456,7 @@ def main() -> int:
     if parent is not None and not opts.no_wall:
         result["wall"] = wall_turns(versions["parent"])
     if not opts.no_trace:
-        result["trace"] = trace(chip_smoke.NUM_SIMS, chip_smoke.SEED)
+        result["trace"] = trace()
     if opts.sass:
         result["sass"] = {**sass_summary("forward_sim_kernelILi3"),
                           **sass_summary("path_sim_kernelILi3")}
