@@ -255,16 +255,12 @@ def trace(value=None, host_activity=True):
         res = value(profile_sink=sink)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Device activities as (start us, end us, name).  Kineto's own event list
-    # is read where the profiler exposes it: prof.events() builds a Python
-    # tree of every event, which takes ten minutes for a run of 3M launches.
-    kineto = getattr(prof.profiler, "kineto_results", None)
-    if kineto is not None:
-        dev = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name()) for e in kineto.events()
-                     if e.device_type() == DeviceType.CUDA)
-    else:
-        dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
+    # Device activities as (start us, end us, name), from Kineto's own event
+    # list: prof.events() builds a Python tree of every event, which takes ten
+    # minutes for a run of 3M launches.
+    dev = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA)
     out = dict(wall_s=wall, npv=res.npv, phases_s=phases, device_events=len(dev))
     if not dev:
         print("[trace] no device events in the trace")
