@@ -61,6 +61,25 @@ Phases, each printing its own line (every failure exits non-zero):
    ``load``, ``reprice`` on the valuation set and on a fresh key.
 13. spot_sim — ``MultiFactorSpotSim.simulate`` at 1M x 341 (a martingale
    check against the forward curve).
+14. f64_main — the headline case in float64 at 1M paths and the default path
+   budget (the path sets stream: 6 spans of 64), run twice with seed 13. The
+   first run records what the float64 kernels are held against in phase 15:
+   a mid-horizon backward launch, the forward launches of a mid-horizon span
+   and of the tail span (both entered with the inventories the spans before
+   them left) and both streaming sources. The second is timed: launch counts
+   reckoned from the spans, no plain version called, NPV within 1% of the
+   float32 record and against the port's float64 record, intrinsic within
+   1e-5 of the float32 one.
+15. f64_kernels — each float64 kernel against its plain float64 version on
+   what phase 14 recorded, timed beside its float64 bound: K1 on the
+   backward launch, K2 on the span's and the tail's forward launches; K3 bit
+   for bit for both sources in all three modes (one launch at
+   ``[341, 3, 1M]``, the checkpoint pass, spans resumed from checkpoints),
+   and antithetic at 100,001 x 37 for 1 to 4 factors; the checkpoint pass,
+   one span and one whole path set timed.
+16. tree — the trinomial tree on the card against the port on the CPU: the
+   README oracle, the headline storage through a one-factor tree (float32 and
+   float64), the intrinsic tree, float64 deltas of 12 monthly contracts.
 
 Prints the kernel table as one JSON line, then the result as the last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -122,6 +141,10 @@ CANCEL_MEM_SLACK = 64 * 2**20  # bytes a cancelled run may leave allocated
 # per lane and clock, so the int32 peak is a quarter of it in operations/s.
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
+# float64 outside the tensor cores: half the float32 rate (NVIDIA's data
+# sheet: 34 TFLOP/s for the H100 SXM).  A float64 kernel's bound takes this
+# peak and 8-byte elements.
+PEAK_FP64_FLOPS = 34e12
 SMALL_PATH_SIMS, SMALL_PATH_STEPS = 100_001, 37  # the path kernel's antithetic check
 LARGE_G, LARGE_G_EXTRA = 700, 1  # the random-input K1 phase: G = 700, D = 5
 # Streaming: the variable that sets the path budget (read by the port), the
@@ -154,6 +177,42 @@ HOURLY_BASIS = "1 + x_st + x_sw + x_lt + s + x_st**2 + s**2"
 HOURLY_PEAK_BYTES_MAX = 6 * 2**30
 HOURLY_CAPTURE_LAUNCH = 8_760  # the backward launch recorded: a mid-horizon period
 REPRICE_NPV_RTOL = 1e-6  # a saved and reloaded policy against the whole run
+# float64 (the f64_main and f64_kernels phases).  f64_main runs at the
+# default path budget (6e9), where the two float64 path sets (8.2 GB each)
+# stream; the kernels are held against their plain versions on the launches
+# it makes.  Kernel against plain version in float64 (see the kernels' sources): K1 V
+# entries within F64_V_TOL of max|V| outside near-tie flips (its fitted
+# totals are an FMA chain, torch's a matrix product), at most
+# F64_FLIP_FRAC_MAX of them, partials within F64_PARTIALS_RTOL; K2 rounds as
+# torch rounds, so per-sim PVs within F64_PV_RTOL, at most F64_FLIP_FRAC_MAX
+# / 10 flipped paths per decision, an NPV effect within F64_NPV_RTOL; K3 bit
+# for bit.  The float64 NPV draws other paths than the float32 one (float64
+# normals consume both hash words), so it agrees with the float32 record
+# only to Monte-Carlo and policy error (F64_VS_F32_RTOL); the intrinsic
+# value (float64 DP against float32 DP, one float64 sweep) to
+# F64_INTRINSIC_RTOL.  PORT_NPV_F64 is the port's float64 record for this
+# case and seed on an H100 (its first chip run; re-read it, as PORT_NPV, when
+# a change to a kernel's rounding or reduction order moves it), held to
+# PORT_NPV_F64_RTOL.
+F64_V_TOL, F64_FLIP_FRAC_MAX, F64_PARTIALS_RTOL = 1e-12, 1e-6, 1e-12
+F64_PV_RTOL, F64_NPV_RTOL = 1e-12, 1e-12
+F64_VS_F32_RTOL, F64_INTRINSIC_RTOL = 1e-2, 1e-5
+PORT_NPV_F64, PORT_NPV_F64_RTOL = 78_362.144839, 1e-6
+DEFAULT_PATH_BUDGET = 6e9  # the port's (and the JAX package's) default path budget
+F64_SOURCES = {"K1": "storage_tpu_torch/ops/csrc/backward_update_f64.cu",
+               "K2": "storage_tpu_torch/ops/csrc/forward_sim_f64.cu",
+               "K3": "storage_tpu_torch/ops/csrc/path_sim.cu (float64 mode)"}
+# The tree phase: the README oracle (tests/test_trinomial.py), 24,809.48 within
+# 2%; the headline storage through a one-factor tree (spot vol 0.85, mean
+# reversion 5.5, daily steps); the intrinsic tree against the intrinsic
+# engine within 5e-4 (the tree DP reads its value function at the starting
+# inventory, the engine sums the float64 sweep's period PVs: 3.9e-4 apart on
+# this case in float64 too); the card against the port on the CPU: NPV
+# within TREE_NPV_RTOL per dtype, deltas within TREE_DELTA_TOL of max|delta|.
+README_TREE_NPV, README_TREE_RTOL = 24_809.48, 0.02
+TREE_MEAN_REVERSION, TREE_INTRINSIC_RTOL = 5.5, 5e-4
+TREE_NPV_RTOL = {"float32": 1e-5, "float64": 1e-10}
+TREE_DELTA_TOL = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -239,38 +298,43 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def _bound(nbytes, flops, int_ops=0):
+def _bound(nbytes, flops, int_ops=0, itemsize=4):
+    """The larger of the times for the bytes and for the operations; float
+    operations at the float32 peak, or the float64 one for ``itemsize`` 8."""
+    peak_flops = PEAK_FP64_FLOPS if itemsize == 8 else PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(flops / PEAK_FP32_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3  # separate pipes
+    t_ops = max(flops / peak_flops, int_ops / PEAK_INT32_OPS) * 1e3  # separate pipes
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_bound(S, G, D, B, F):
+def k1_bound(S, G, D, B, F, itemsize=4):
     """(ms, "bytes" or "operations") for one K1 launch: V_next read and V_out
     written once, both factor rows, the table and geometry read once, the
     partials written once; per sim D G (2B + 3) flops for the fitted totals,
     10 G for the winning decision's actual total and its centred value (the
     function needs it once per grid point), and 2 (B+1)(G + B+1) for the
-    partials."""
+    partials.  ``itemsize`` 8: float64 elements and the float64 peak (j
+    stays int32)."""
     B1 = B + 1
-    nbytes = 4 * (2 * F * S + 2 * G * S + D * G * (B + 2) + 2 * D * G + G + B1 * (G + B1))
+    nbytes = (itemsize * (2 * F * S + 2 * G * S + D * G * (B + 2) + D * G + G + B1 * (G + B1))
+              + 4 * D * G)
     flops = S * (D * G * (2 * B + 3) + 10 * G + 2 * B1 * (G + B1))
-    return _bound(nbytes, flops)
+    return _bound(nbytes, flops, itemsize=itemsize)
 
 
-def k2_bound(n, S, F, B, D, panels):
+def k2_bound(n, S, F, B, D, panels, itemsize=4):
     """(ms, "bytes" or "operations") for one K2 launch over n steps: the
     factor paths read once, inventories in and out, PVs out, the panels
     written once when asked for; per sim and step 5B + 2F + 30 flops for the
     spot, design row and rates, D (5(B+1) + 23) for the decisions (the
     interpolated continuation is 5 flops per basis term) and B + 8 for the
-    sums."""
-    nbytes = 4 * (n * F * S + 3 * S + (24 * S * n if panels else 0))
+    sums.  ``itemsize`` 8: float64 elements and the float64 peak."""
+    nbytes = itemsize * (n * F * S + 3 * S + (6 * S * n if panels else 0))
     flops = n * S * (5 * B + 2 * F + 30 + D * (5 * (B + 1) + 23) + B + 8)
-    return _bound(nbytes, flops)
+    return _bound(nbytes, flops, itemsize=itemsize)
 
 
-def k3_bound(n, S, F, draw_sims, rows=None, entering_state=False):
+def k3_bound(n, S, F, draw_sims, rows=None, entering_state=False, itemsize=4):
     """(ms, "bytes" or "operations") for one K3 launch over n steps: the
     ``rows`` (default n) states ``[F, S]`` it writes, each once (all n in path
     mode, the checkpoints in checkpoint mode), and the entering state of the
@@ -279,11 +343,17 @@ def k3_bound(n, S, F, draw_sims, rows=None, entering_state=False):
     xor, 11 key additions and the final xor: 72; the counter and the
     mantissa: 3) and 29 flops (the uniform map 4, the Giles polynomial 25
     with log1pf counted as one; the square root of the tail branch is not
-    counted), and per path element (n F S) 2F + 1 flops of the OU update."""
+    counted), and per path element (n F S) 2F + 1 flops of the OU update.
+    ``itemsize`` 8, the float64 mode: 8-byte states at the float64 peak, and
+    85 flops per draw (the uniform map 4, XLA's log1p 34 on its rational
+    branch, the 23-term Giles polynomial 47; log and the square root of the
+    outer ranges are not counted)."""
     rows = n if rows is None else rows
     draws = n * F * draw_sims
-    nbytes = 4 * (rows * F * S + (F * draw_sims if entering_state else 0))
-    return _bound(nbytes, 29 * draws + (2 * F + 1) * n * F * S, 75 * draws)
+    nbytes = itemsize * (rows * F * S + (F * draw_sims if entering_state else 0))
+    per_draw = 85 if itemsize == 8 else 29
+    return _bound(nbytes, per_draw * draws + (2 * F + 1) * n * F * S, 75 * draws,
+                  itemsize=itemsize)
 
 
 def rel_err(a, b):
@@ -379,14 +449,18 @@ def _check_backward(label, args, kw, min_tiles_per_block=1):
     timed there, beside the bound and the partial product alone. Each block
     of the kernel's persistent grid must walk at least ``min_tiles_per_block``
     128-sim tiles, so that the comparison covers the partials it carries from
-    one tile to the next."""
+    one tile to the next.  float64 operands go to the float64 kernel, held
+    to the float64 tolerances."""
     import torch
     from storage_tpu_torch.ops import backward, csrc
 
     (f, fp, v_next, table, vbar, musd, gj, gw, scal) = args
     spec = kw["spec"]
     S, G, D, B, F = v_next.shape[1], v_next.shape[0], table.shape[0], spec.num_basis, f.shape[0]
-    blocks = backward._persistent_grid(csrc.kernels(), v_next.device, S, D, B)
+    f64 = v_next.dtype == torch.float64
+    v_tol, flip_max, partials_rtol = ((F64_V_TOL, F64_FLIP_FRAC_MAX, F64_PARTIALS_RTOL) if f64
+                                      else (V_TOL, FLIP_FRAC_MAX, PARTIALS_RTOL))
+    blocks = backward._persistent_grid(csrc.kernels(), v_next.device, S, D, B, v_next.dtype)
     tiles_per_block = -(-S // 128) // blocks  # the fewest a block walks
     check(tiles_per_block >= min_tiles_per_block,
           f"{label}: {S} sims give {blocks} blocks {tiles_per_block} tiles each, "
@@ -396,7 +470,7 @@ def _check_backward(label, args, kw, min_tiles_per_block=1):
     torch.cuda.synchronize()
     scale = float(v_r.abs().max())
     diff = (v_k - v_r).abs()
-    flipped = diff > V_TOL * scale
+    flipped = diff > v_tol * scale
     n_flipped = int(flipped.sum())
     frac = n_flipped / flipped.numel()
     max_err = float(diff.max())
@@ -406,19 +480,19 @@ def _check_backward(label, args, kw, min_tiles_per_block=1):
     ms = cuda_ms(lambda: backward._backward_update_cuda(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: backward.backward_update_reference(*args, **kw), 3)
     # The reduction alone as one library call (the port never calls it).
-    xr = torch.randn(B + 1, S, device=v_next.device)
+    xr = torch.randn(B + 1, S, device=v_next.device, dtype=v_next.dtype)
     vc_t = (v_next - vbar[:, None]).T
     praw_matmul_ms = cuda_ms(lambda: torch.matmul(xr, vc_t), 20)
     del xr, vc_t
-    bound_ms, bound_by = k1_bound(S, G, D, B, F)
+    bound_ms, bound_by = k1_bound(S, G, D, B, F, itemsize=v_next.element_size())
     print(f"[{label}] {S} sims G={G} B={B} D={D}, {blocks} blocks of >= {tiles_per_block} "
           f"tiles: V max|diff| {max_err:.3e} (max|V| {scale:.3e}), outside flips "
           f"{max_ok:.3e}, flipped {n_flipped} = {frac:.2e}; graw rel {e_graw:.2e}, praw rel "
           f"{e_praw:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}), share {bound_ms / ms:.3f}; torch.matmul of the partial product "
           f"{praw_matmul_ms:.3f} ms")
-    check(frac <= FLIP_FRAC_MAX, f"{label} flipped fraction {frac:.2e} > {FLIP_FRAC_MAX}")
-    check(e_graw <= PARTIALS_RTOL and e_praw <= PARTIALS_RTOL,
+    check(frac <= flip_max, f"{label} flipped fraction {frac:.2e} > {flip_max}")
+    check(e_graw <= partials_rtol and e_praw <= partials_rtol,
           f"{label} partials disagree: graw {e_graw:.2e}, praw {e_praw:.2e}")
     # library_ms: no single torch call computes K1's function (an argmax over
     # decisions with interpolation, fused with the regression partials).
@@ -497,8 +571,13 @@ def _check_forward(label, args, kw, panels=False, min_tiles_per_block=2):
     n, F, S = factors.shape
     spec = kw["spec"]
     D = 3 + 2 * kw.get("extra_decisions", 0)
+    f64 = factors.dtype == torch.float64
+    pv_rtol, flip_max, npv_rtol, sums_rtol = (
+        (F64_PV_RTOL, F64_FLIP_FRAC_MAX, F64_NPV_RTOL, F64_PARTIALS_RTOL) if f64
+        else (1e-4, FLIP_FRAC_MAX, FWD_NPV_RTOL, PARTIALS_RTOL))
     blocks = forward.grid_blocks(csrc.kernels(), factors.device, spec, S, kw["num_grid"],
-                                 spec.num_basis, F, pillars.shape[1], pillars.shape[2], D)
+                                 spec.num_basis, F, pillars.shape[1], pillars.shape[2], D,
+                                 dtype=factors.dtype)
     tiles_per_block = -(-S // forward.TILE_SIMS) // blocks  # the fewest a block walks
     check(tiles_per_block >= min_tiles_per_block,
           f"{label}: {S} sims give {blocks} blocks {tiles_per_block} tiles each, "
@@ -506,14 +585,14 @@ def _check_forward(label, args, kw, panels=False, min_tiles_per_block=2):
     kw = dict(kw, panels=None)
     out_k = out_r = None
     if panels:
-        out_k = torch.full((n, 6, S), float("nan"), device=factors.device)
+        out_k = torch.full((n, 6, S), float("nan"), device=factors.device, dtype=factors.dtype)
         out_r = torch.empty_like(out_k)
     s_k, x_k, inv_k, pv_k = forward._forward_sim_cuda(*args, **dict(kw, panels=out_k))
     s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **dict(kw, panels=out_r))
     torch.cuda.synchronize()
     e_sums, e_xsums = rel_err(s_k, s_r), rel_err(x_k, x_r)
     pv_diff = (pv_k - pv_r).abs()
-    flipped = pv_diff > 1e-4 * pv_r.abs().clamp_min(1e-6 * float(pv_r.abs().max()))
+    flipped = pv_diff > pv_rtol * pv_r.abs().clamp_min(1e-6 * float(pv_r.abs().max()))
     panel_note = ""
     if panels:
         # A flipped near-tie decision can also leave the PV within 1e-4 (the
@@ -535,17 +614,18 @@ def _check_forward(label, args, kw, panels=False, min_tiles_per_block=2):
         kw = dict(kw, panels=out_k)
     ms = cuda_ms(lambda: forward._forward_sim_cuda(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: forward.forward_sim_reference(*args, **kw), 1)
-    bound_ms, bound_by = k2_bound(n, S, F, spec.num_basis, D, panels)
+    bound_ms, bound_by = k2_bound(n, S, F, spec.num_basis, D, panels,
+                                  itemsize=factors.element_size())
     print(f"[{label}] {S} sims x {n} steps, {blocks} blocks of >= {tiles_per_block} tiles: sums rel "
           f"{e_sums:.2e}, xsums rel {e_xsums:.2e}, pv max|diff| {float(pv_diff.max()):.3e} "
           f"(outside flips {max_ok:.3e}), flipped paths {int(flipped.sum())} = {frac:.2e} "
           f"= {per_decision:.2e} per decision, NPV effect {npv_effect:.2e}{panel_note}; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
-    check(per_decision <= FLIP_FRAC_MAX / 10,
-          f"{label} flips {per_decision:.2e} per decision > {FLIP_FRAC_MAX / 10}")
-    check(npv_effect <= FWD_NPV_RTOL, f"{label} NPV effect {npv_effect:.2e} > {FWD_NPV_RTOL}")
-    check(e_sums <= PARTIALS_RTOL and e_xsums <= PARTIALS_RTOL,
+    check(per_decision <= flip_max / 10,
+          f"{label} flips {per_decision:.2e} per decision > {flip_max / 10}")
+    check(npv_effect <= npv_rtol, f"{label} NPV effect {npv_effect:.2e} > {npv_rtol}")
+    check(e_sums <= sums_rtol and e_xsums <= sums_rtol,
           f"{label} sums disagree: sums {e_sums:.2e}, xsums {e_xsums:.2e}")
     # library_ms: no single torch call computes K2's function (a sequential
     # argmax policy over the horizon).
@@ -587,18 +667,20 @@ def phase_forward_variants(captured):
     }
 
 
-def _compare_paths(label, coeffs, num_sims, key, antithetic):
-    """The path kernel against its plain version on one case, bit for bit;
-    returns max |diff|."""
+def _compare_paths(label, coeffs, num_sims, key, antithetic, dtype=None):
+    """The path kernel against its plain version on one case, bit for bit
+    (float32, or the float64 mode); returns max |diff|."""
     import torch
     from storage_tpu_torch.models import simulation
 
-    got = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda")
-    ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, "cuda")
+    dtype = torch.float32 if dtype is None else dtype
+    got = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda", dtype)
+    ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, "cuda",
+                                                     dtype=dtype)
     torch.cuda.synchronize()
     check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
           f"{label}: paths {tuple(got.shape)} not finite or not {tuple(ref.shape)}")
-    differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    differ = _bits_differ(got, ref)
     max_err = float((got - ref).abs().max())
     print(f"[{label}] {tuple(got.shape)}{' antithetic' if antithetic else ''}: {differ} of "
           f"{got.numel()} elements differ from the plain version, max|diff| {max_err:.3e}")
@@ -824,25 +906,29 @@ def phase_options(main_npv):
 def _bits_differ(a, b):
     import torch
 
-    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return int((a.view(bits) != b.view(bits)).sum())
 
 
-def _check_stream(label, coeffs, num_sims, key, antithetic, every):
+def _check_stream(label, coeffs, num_sims, key, antithetic, every, dtype=None):
     """Spans regenerated from checkpoints against the one-launch paths, the
     checkpoint pass against its plain version, ``last()`` and the refusal of
-    a read across spans: tolerance none, every element bit for bit."""
+    a read across spans, in ``dtype`` (default float32): tolerance none,
+    every element bit for bit."""
     import torch
     from storage_tpu_torch.models import simulation
 
-    mono = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda")
+    dtype = torch.float32 if dtype is None else dtype
+    mono = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda",
+                                                  dtype)
     src = simulation.StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
-                                           device="cuda").prepare()
+                                           device="cuda", dtype=dtype).prepare()
     spans = src.spans()
     differ = sum(_bits_differ(src.factors(a, b), mono[a:b]) for a, b in spans)
     differ_last = _bits_differ(src.last(), mono[-1])
     del mono
     ckpts = simulation.factor_checkpoints_reference(coeffs, num_sims, key, antithetic,
-                                                    src.every, "cuda")
+                                                    src.every, "cuda", dtype)
     differ_ckpt = _bits_differ(src._checkpoints(), ckpts)
     torch.cuda.synchronize()
     try:
@@ -866,7 +952,6 @@ def phase_path_sim_stream(captured, hourly_coeffs):
     both variants timed at the hourly case's shapes: the checkpoint pass over
     the whole horizon and one span resumed from a checkpoint."""
     import numpy as np
-    import torch
     from storage_tpu_torch.models import simulation
     from storage_tpu_torch.valuation import _stream_span_length
 
@@ -883,39 +968,56 @@ def phase_path_sim_stream(captured, hourly_coeffs):
                       simulation.prng_key(SEED + F), True, 16)
 
     # Timed at the hourly shapes: [17520 -> 137, 3, 250k] and [128, 3, 250k].
-    n, F = hourly_coeffs.decay.shape
-    S, draw = HOURLY_SIMS, (HOURLY_SIMS + 1) // 2
-    key = simulation.prng_key(SEED)
-    src = simulation.StreamingFactorSource(
-        hourly_coeffs, S, key, True, every=_stream_span_length(HOURLY_BUDGET, 4 * F * S),
-        device="cuda").prepare()
+    F = hourly_coeffs.decay.shape[1]
+    return _time_stream_modes("K3", hourly_coeffs, HOURLY_SIMS, simulation.prng_key(SEED), True,
+                              _stream_span_length(HOURLY_BUDGET, 4 * F * HOURLY_SIMS))
+
+
+def _time_stream_modes(label, coeffs, num_sims, key, antithetic, every, dtype=None):
+    """K3's checkpoint pass over the horizon and one span resumed from the
+    middle checkpoint, in ``dtype`` (default float32): each against its plain
+    version bit for bit, then timed beside its bound."""
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    dtype = torch.float32 if dtype is None else dtype
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n, F = coeffs.decay.shape
+    S, draw = num_sims, (num_sims + 1) // 2 if antithetic else num_sims
+    src = simulation.StreamingFactorSource(coeffs, S, key, antithetic, every=every,
+                                           device="cuda", dtype=dtype).prepare()
     every, num_ckpt = src.every, len(src.spans())
     tables, ckpts = src._tables, src._checkpoints()
     out_c = torch.empty_like(ckpts)
-    ms_c = cuda_ms(lambda: simulation._launch_path_sim(tables, out_c, S, True, every=every), 3)
+    ms_c = cuda_ms(lambda: simulation._launch_path_sim(tables, out_c, S, antithetic,
+                                                       every=every), 3)
     plain_c = cuda_ms(lambda: simulation.factor_checkpoints_reference(
-        hourly_coeffs, S, key, True, every, "cuda"), 1)
-    plain = simulation.factor_checkpoints_reference(hourly_coeffs, S, key, True, every, "cuda")
+        coeffs, S, key, antithetic, every, "cuda", dtype), 1)
+    plain = simulation.factor_checkpoints_reference(coeffs, S, key, antithetic, every, "cuda",
+                                                    dtype)
     differ, err_c = _bits_differ(out_c, plain), float((out_c - plain).abs().max())
-    check(differ == 0, f"K3 checkpoints at the hourly shape: {differ} elements differ")
+    check(differ == 0, f"{label} checkpoints: {differ} elements differ from the plain version")
     steps_c = (num_ckpt - 1) * every  # the pass stops at the last checkpoint
-    bound_c, by_c = k3_bound(steps_c, S, F, draw, rows=num_ckpt)
+    bound_c, by_c = k3_bound(steps_c, S, F, draw, rows=num_ckpt, itemsize=itemsize)
     i = num_ckpt // 2
-    out_s = torch.empty((every, F, S), device="cuda")
+    out_s = torch.empty((every, F, S), device="cuda", dtype=dtype)
     span = dict(y0=ckpts[i], step0=i * every, num_steps=every)
-    ms_s = cuda_ms(lambda: simulation._launch_path_sim(tables, out_s, S, True, **span), 20)
+    ms_s = cuda_ms(lambda: simulation._launch_path_sim(tables, out_s, S, antithetic, **span), 20)
     plain_s = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
-        hourly_coeffs, S, key, True, "cuda", **span), 2)
-    plain = simulation.simulate_factor_paths_reference(hourly_coeffs, S, key, True, "cuda", **span)
+        coeffs, S, key, antithetic, "cuda", dtype=dtype, **span), 2)
+    plain = simulation.simulate_factor_paths_reference(coeffs, S, key, antithetic, "cuda",
+                                                       dtype=dtype, **span)
     differ, err_s = _bits_differ(out_s, plain), float((out_s - plain).abs().max())
-    check(differ == 0, f"K3 span at the hourly shape: {differ} elements differ")
+    check(differ == 0, f"{label} span: {differ} elements differ from the plain version")
     del plain
-    bound_s, by_s = k3_bound(every, S, F, draw, entering_state=True)
-    print(f"[K3 checkpoints] [{n} -> {num_ckpt}, {F}, {S}] antithetic, every {every}: kernel "
-          f"{ms_c:.3f} ms, plain {plain_c:.3f} ms, bound {bound_c:.3f} ms ({by_c}), share "
-          f"{bound_c / ms_c:.3f}")
-    print(f"[K3 span] [{every}, {F}, {S}] antithetic from checkpoint {i}: kernel {ms_s:.3f} ms, "
-          f"plain {plain_s:.3f} ms, bound {bound_s:.3f} ms ({by_s}), share {bound_s / ms_s:.3f}")
+    bound_s, by_s = k3_bound(every, S, F, draw, entering_state=True, itemsize=itemsize)
+    mode = " antithetic" if antithetic else ""
+    print(f"[{label} checkpoints] [{n} -> {num_ckpt}, {F}, {S}]{mode}, every {every}, bit-equal "
+          f"to the plain version: kernel {ms_c:.3f} ms, plain {plain_c:.3f} ms, bound "
+          f"{bound_c:.3f} ms ({by_c}), share {bound_c / ms_c:.3f}")
+    print(f"[{label} span] [{every}, {F}, {S}]{mode} from checkpoint {i}, bit-equal to the plain "
+          f"version: kernel {ms_s:.3f} ms, plain {plain_s:.3f} ms, bound {bound_s:.3f} ms "
+          f"({by_s}), share {bound_s / ms_s:.3f}")
     return {
         "checkpoints": dict(max_abs_err=err_c, ms=ms_c, plain_ms=plain_c, bound_ms=bound_c,
                             bound_by=by_c, share=bound_c / ms_c, library_ms=None),
@@ -942,14 +1044,16 @@ class _path_budget:
             os.environ[MAX_PATH_BYTES_ENV] = self.old
 
 
-def _stream_counts(num_sim_steps, num_sims, num_factors, budget):
+def _stream_counts(num_sim_steps, num_sims, num_factors, budget, itemsize=4):
     """The launches a streamed valuation must make, reckoned from the source's
-    spans: K1 once per simulated decision step, K2 once per span that holds
-    a decision step, K3 one checkpoint pass and one launch per span for each
-    path set (``last()`` reads the span the one-slot cache holds)."""
+    spans (their length from the budget and elements of ``itemsize`` bytes,
+    as the JAX package reckons them): K1 once per simulated decision step, K2
+    once per span that holds a decision step, K3 one checkpoint pass and one
+    launch per span for each path set (``last()`` reads the span the
+    one-slot cache holds)."""
     from storage_tpu_torch.valuation import _stream_span_length
 
-    every = -(-_stream_span_length(budget, 4 * num_factors * num_sims) // 16) * 16
+    every = -(-_stream_span_length(budget, itemsize * num_factors * num_sims) // 16) * 16
     spans = -(-num_sim_steps // every)
     m = num_sim_steps - 1
     fwd_spans = sum(1 for a in range(0, num_sim_steps, every) if a < m)
@@ -1046,20 +1150,7 @@ def phase_hourly():
 
     phases, health = {}, []
     real_health = lsmc._check_forward_health
-    real_kernels = (lsmc.backward_update, lsmc.forward_sim)
     n_sim_steps = 8760 * HOURLY_YEARS
-    fwd_spans = _stream_counts(n_sim_steps, HOURLY_SIMS, 3, HOURLY_BUDGET)[0]["forward_sim"]
-    wanted = {"bwd": {HOURLY_CAPTURE_LAUNCH: "K1"},
-              "fwd": {fwd_spans // 2 + 1: "K2 span", fwd_spans: "K2 tail"}}
-    calls, recorded = {"bwd": 0, "fwd": 0}, {}
-
-    def recording(kind, real):  # the recorded operands wait on the host
-        def call(*args, **kw):
-            calls[kind] += 1
-            if calls[kind] in wanted[kind]:
-                recorded[wanted[kind][calls[kind]]] = (tuple(a.cpu() for a in args), kw)
-            return real(*args, **kw)
-        return call
 
     def sink(sw):
         phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
@@ -1071,13 +1162,12 @@ def phase_hourly():
     lsmc._check_forward_health = counted_health
     try:
         with _path_budget(HOURLY_BUDGET):
-            lsmc.backward_update = recording("bwd", real_kernels[0])
-            lsmc.forward_sim = recording("fwd", real_kernels[1])
-            t0 = time.perf_counter()
-            warm = value_hourly(tt, HOURLY_SIMS, 12, device="cuda")
-            torch.cuda.synchronize()
-            warm_wall = time.perf_counter() - t0
-            lsmc.backward_update, lsmc.forward_sim = real_kernels
+            with _recording(HOURLY_CAPTURE_LAUNCH, _stream_counts(
+                    n_sim_steps, HOURLY_SIMS, 3, HOURLY_BUDGET)[0]["forward_sim"]) as recorded:
+                t0 = time.perf_counter()
+                warm = value_hourly(tt, HOURLY_SIMS, 12, device="cuda")
+                torch.cuda.synchronize()
+                warm_wall = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats()
             tt.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1086,7 +1176,6 @@ def phase_hourly():
             wall = time.perf_counter() - t0
     finally:
         lsmc._check_forward_health = real_health
-        lsmc.backward_update, lsmc.forward_sim = real_kernels
     counts, peak = tt.launch_counts(), torch.cuda.max_memory_allocated()
     n_steps = len(res.expected_profile) - 1
     expected, every, spans = _stream_counts(n_steps, HOURLY_SIMS, 3, HOURLY_BUDGET)
@@ -1114,32 +1203,85 @@ def phase_hourly():
           f"hourly NPV {res.npv} is {above:+.2%} on the quantized record {HOURLY_QUANTIZED_NPV}")
     check(peak < HOURLY_PEAK_BYTES_MAX, f"hourly peak device memory {peak / 2**30:.3f} GiB")
     check(counts == expected, f"hourly launches {counts}, expected {expected}")
-    check(sorted(recorded) == ["K1", "K2 span", "K2 tail"],
-          f"the warm-up run recorded {sorted(recorded)} of its launches")
+    # The kernels at this path's shapes (S = 250,000, the 7-term basis, spans
+    # of `every` steps and the tail) against their plain versions, with the
+    # flip bounds of the daily case.  A block of either grid walks one or two
+    # tiles at this width.
+    k1, k2_span, k2_tail = _check_recorded("hourly", recorded, n_steps, every, spans, 1)
+    return counts, {"hourly": k1}, {"hourly_span": k2_span, "hourly_tail": k2_tail}
+
+
+class _recording:
+    """While a run makes them, keep on the host the operands of its
+    ``backward_launch``-th K1 launch ("K1"), of the K2 launch of its middle
+    span ("K2 span", entered with the inventories the spans before it left)
+    and of its last ("K2 tail"), of a streamed run with ``fwd_spans`` forward
+    launches; and the parameters of its streaming sources ("sources")."""
+
+    def __init__(self, backward_launch, fwd_spans):
+        self.wanted = {"bwd": {backward_launch: "K1"},
+                       "fwd": {fwd_spans // 2 + 1: "K2 span", fwd_spans: "K2 tail"}}
+        self.recorded = {"sources": []}
+
+    def __enter__(self):
+        from storage_tpu_torch import valuation
+        from storage_tpu_torch.engines import lsmc
+
+        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource)
+        calls, recorded = {"bwd": 0, "fwd": 0}, self.recorded
+
+        def recording(kind, real):
+            def call(*args, **kw):
+                calls[kind] += 1
+                if calls[kind] in self.wanted[kind]:
+                    recorded[self.wanted[kind][calls[kind]]] = (tuple(a.cpu() for a in args), kw)
+                return real(*args, **kw)
+            return call
+
+        class Source(self.real[2]):
+            def prepare(self):
+                recorded["sources"].append(
+                    (self._coeffs, self.num_sims, self._key, self.antithetic, self.every))
+                return super().prepare()
+
+        lsmc.backward_update, lsmc.forward_sim = (recording("bwd", self.real[0]),
+                                                  recording("fwd", self.real[1]))
+        valuation.StreamingFactorSource = Source
+        return recorded
+
+    def __exit__(self, *exc):
+        from storage_tpu_torch import valuation
+        from storage_tpu_torch.engines import lsmc
+
+        lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource = self.real
+
+
+def _check_recorded(label, recorded, n_steps, every, spans, min_tiles_per_block):
+    """K1 and K2 against their plain versions on the launches a
+    :class:`_recording` kept, moved back to the card, and timed there."""
+    check(sorted(recorded) == ["K1", "K2 span", "K2 tail", "sources"],
+          f"the {label} run recorded {sorted(recorded)}")
 
     def on_card(name):
         args, kw = recorded.pop(name)
         return tuple(a.cuda() for a in args), kw
 
-    # The kernels at this path's shapes (S = 250,000, the 7-term basis, spans
-    # of `every` steps and the tail) against their plain versions, with the
-    # flip bounds of the daily case.  A block of either grid walks one or two
-    # tiles at this width.
-    k1 = _check_backward("K1 backward_update hourly", *on_card("K1"), min_tiles_per_block=1)
+    k1 = _check_backward(f"K1 backward_update {label}", *on_card("K1"),
+                         min_tiles_per_block=min_tiles_per_block)
     span_args, span_kw = on_card("K2 span")
     inv0 = span_args[1]
     check(span_args[0].shape[0] == every and float(inv0.max() - inv0.min()) > 0.0,
           f"the recorded span has {span_args[0].shape[0]} steps and enters with inventories "
           f"in [{float(inv0.min())}, {float(inv0.max())}]")
-    k2_span = _check_forward("K2 forward_sim hourly span", span_args, span_kw,
-                             min_tiles_per_block=1)
+    k2_span = _check_forward(f"K2 forward_sim {label} span", span_args, span_kw,
+                             min_tiles_per_block=min_tiles_per_block)
     del span_args, inv0
     tail_args, tail_kw = on_card("K2 tail")
     check(tail_args[0].shape[0] == n_steps - 1 - (spans - 1) * every,
           f"the recorded tail span has {tail_args[0].shape[0]} steps")
-    k2_tail = _check_forward("K2 forward_sim hourly tail", tail_args, tail_kw,
-                             min_tiles_per_block=1)
-    return counts, {"hourly": k1}, {"hourly_span": k2_span, "hourly_tail": k2_tail}
+    k2_tail = _check_forward(f"K2 forward_sim {label} tail", tail_args, tail_kw,
+                             min_tiles_per_block=min_tiles_per_block)
+    return k1, k2_span, k2_tail
 
 
 def phase_reprice(main_npv):
@@ -1246,6 +1388,257 @@ def phase_spot_sim():
     return counts
 
 
+def phase_f64_main(main_npv, main_intrinsic):
+    """The headline case at 1M paths in float64 at the default path budget,
+    where its path sets (8.2 GB each) stream: a first run (seed 13) recording
+    what phase f64_kernels holds the kernels against, then the same run
+    timed, its launch counts reckoned from the spans, no plain version
+    called.  Returns the timed run's counts, what was recorded, and the span
+    length and count."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.models import simulation
+    from storage_tpu_torch.ops import backward, forward
+
+    phases, plain_calls = {}, []
+
+    def sink(sw):
+        phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
+
+    plain = [(backward, "backward_update_reference"), (forward, "forward_sim_reference"),
+             (simulation, "simulate_factor_paths_reference"),
+             (simulation, "factor_checkpoints_reference")]
+    saved = [getattr(mod, name) for mod, name in plain]
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            plain_calls.append(name)
+            return fn(*args, **kw)
+        return call
+
+    n_sim_steps = 341  # bench.py::build_case valued 2021-04-25
+    fwd_spans = _stream_counts(n_sim_steps, NUM_SIMS, 3, DEFAULT_PATH_BUDGET,
+                               itemsize=8)[0]["forward_sim"]
+    for (mod, name), fn in zip(plain, saved):
+        setattr(mod, name, counting(name, fn))
+    try:
+        with _path_budget(DEFAULT_PATH_BUDGET):
+            with _recording(CAPTURE_LAUNCH, fwd_spans) as recorded:
+                t0 = time.perf_counter()
+                first = value_case(tt, NUM_SIMS, SEED, device="cuda", dtype=torch.float64)
+                torch.cuda.synchronize()
+                first_wall = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            tt.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = value_case(tt, NUM_SIMS, SEED, device="cuda", dtype=torch.float64,
+                             profile_sink=sink)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = tt.launch_counts()
+    finally:
+        for (mod, name), fn in zip(plain, saved):
+            setattr(mod, name, fn)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(res.expected_profile) - 1
+    expected, every, spans = _stream_counts(n_steps, NUM_SIMS, 3, DEFAULT_PATH_BUDGET, itemsize=8)
+    gap = res.npv / PORT_NPV - 1.0
+    intrinsic_rel = abs(res.intrinsic_npv / main_intrinsic - 1.0)
+    print(f"[f64_main] float64, {NUM_SIMS} paths x {n_steps} steps, default budget "
+          f"{DEFAULT_PATH_BUDGET:.0e} B: {spans} spans of {every}; recording run {first_wall:.3f} s, "
+          f"NPV {first.npv:.6f}; timed run wall {wall:.3f} s; phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    print(f"[f64_main] NPV {res.npv:.6f} (float32 record {PORT_NPV:.4f}, gap {gap:+.3e}; this "
+          f"run's float32 NPV {main_npv:.4f}; float64 record {PORT_NPV_F64:.6f}), intrinsic "
+          f"{res.intrinsic_npv:.6f} (float32 {main_intrinsic:.6f}, rel {intrinsic_rel:.2e}), peak "
+          f"device memory {peak / 2**30:.3f} GiB, launches {counts}, plain-version calls "
+          f"{len(plain_calls)}")
+    deltas = res.deltas.to_numpy()
+    check(n_steps == n_sim_steps, f"f64_main case has {n_steps} steps")
+    check(np.isfinite(res.npv) and deltas.shape == (n_steps + 1,) and np.isfinite(deltas).all(),
+          "f64_main NPV or deltas not finite")
+    check(counts == expected, f"f64_main launches {counts}, expected {expected}")
+    check(not plain_calls, f"f64_main called plain versions: {sorted(set(plain_calls))}")
+    check(abs(gap) <= F64_VS_F32_RTOL, f"float64 NPV {res.npv} is {gap:+.2e} off the float32 "
+          f"record {PORT_NPV}")
+    check(intrinsic_rel <= F64_INTRINSIC_RTOL,
+          f"float64 intrinsic {res.intrinsic_npv} vs float32 {main_intrinsic}: {intrinsic_rel:.2e}")
+    for run in (first, res):
+        check(abs(run.npv / PORT_NPV_F64 - 1.0) <= PORT_NPV_F64_RTOL,
+              f"float64 NPV {run.npv} outside the port's float64 record {PORT_NPV_F64} "
+              f"+- {PORT_NPV_F64_RTOL}")
+    check(len(recorded["sources"]) == PATH_SETS
+          and all(src[4] == every for src in recorded["sources"]),
+          f"the recording run streamed {len(recorded['sources'])} path sets")
+    return counts, recorded, every, spans
+
+
+def phase_f64_kernels(recorded, every, spans):
+    """The float64 kernels against their plain float64 versions on what
+    f64_main's recording run kept, each timed beside its float64 bound: K1 on
+    its mid-horizon launch, K2 on the middle span's and the tail's launches;
+    K3 bit for bit for both streaming sources in one launch at
+    ``[341, 3, 1M]``, in its checkpoint pass and in spans resumed from the
+    checkpoints, and antithetic at 100,001 sims x 37 steps for 1 to 4
+    factors; K3's three modes timed at f64_main's shapes."""
+    import numpy as np
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    f64 = torch.float64
+    check(recorded["K1"][0][2].dtype == f64 and recorded["K2 span"][0][0].dtype == f64,
+          "the float64 run recorded operands of another dtype")
+    n_steps = recorded["sources"][0][0].decay.shape[0]
+    k1, k2_span, k2_tail = _check_recorded("f64", recorded, n_steps, every, spans, 2)
+    max_err = 0.0
+    for (coeffs, num_sims, key, antithetic, src_every), name in zip(
+            recorded["sources"], ("regression", "valuation")):
+        check(not antithetic, "the main path is not antithetic")
+        max_err = max(max_err, _compare_paths(f"K3 path_sim f64 {name} set", coeffs, num_sims,
+                                              key, False, f64))
+        _check_stream(f"K3 stream f64 {name} set", coeffs, num_sims, key, False, src_every, f64)
+    rng = np.random.default_rng(SEED)
+    for F in (1, 2, 3, 4):
+        n = SMALL_PATH_STEPS
+        small = simulation.SimCoefficients(
+            decay=rng.uniform(0.9, 1.0, (n, F)), chol=np.tril(rng.uniform(-0.2, 0.2, (n, F, F))),
+            vols=np.ones((n, F)), log_fwd_drift=np.zeros(n))
+        key = simulation.prng_key(SEED + F)
+        max_err = max(max_err, _compare_paths(f"K3 path_sim f64 F={F}", small, SMALL_PATH_SIMS,
+                                              key, True, f64))
+        _check_stream(f"K3 stream f64 F={F}", small, SMALL_PATH_SIMS, key, True, 16, f64)
+    coeffs, num_sims, key, _, src_every = recorded["sources"][0]
+    n, F = coeffs.decay.shape
+    ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
+        coeffs, num_sims, key, False, "cuda", f64), 5)
+    plain_ms = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
+        coeffs, num_sims, key, False, "cuda", dtype=f64), 1)
+    bound_ms, bound_by = k3_bound(n, num_sims, F, num_sims, itemsize=8)
+    print(f"[K3 path_sim f64] {n} steps x {F} factors x {num_sims} sims: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share "
+          f"{bound_ms / ms:.3f}")
+    k3 = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, share=bound_ms / ms, library_ms=None)
+    modes = _time_stream_modes("K3 f64", coeffs, num_sims, key, False, src_every, f64)
+    return ({"f64": k1}, {"f64": k2_span, "f64_tail": k2_tail},
+            {"f64": k3, "f64_checkpoints": modes["checkpoints"], "f64_span": modes["span"]})
+
+
+def readme_tree_case(pkg):
+    """The README ratcheted storage and curves of ``tests/test_trinomial.py``
+    (README.md:238-303, 448-452), valued 2019-09-15 at inventory 50."""
+    import numpy as np
+    import pandas as pd
+
+    storage = pkg.CmdtyStorage(
+        freq="D", storage_start="2019-09-01", storage_end="2019-10-01",
+        injection_cost=0.48, withdrawal_cost=0.74,
+        ratchets=[
+            ("2019-09-01", [(0.0, -44.85, 56.8), (100.0, -45.01, 54.5), (300.0, -45.78, 52.01),
+                            (600.0, -46.17, 51.9), (800.0, -46.99, 50.8),
+                            (1000.0, -47.12, 50.01)]),
+            ("2019-09-20", [(0.0, -31.41, 48.33), (100.0, -31.85, 43.05),
+                            (300.0, -31.68, 41.22), (600.0, -32.78, 40.08),
+                            (800.0, -33.05, 39.74), (1000.0, -34.8, 38.51)]),
+        ],
+        ratchet_interp=pkg.RatchetInterp.LINEAR)
+    idx = pd.period_range("2019-09-15", "2019-10-01", freq="D")
+    fwd = pd.Series(np.where(idx < pd.Period("2019-09-23", "D"), 56.6, 56.6 + 87.81), index=idx)
+    vols = pd.Series([0.975, 0.97, 0.96, 0.91, 0.89, 0.895, 0.891, 0.89, 0.875, 0.872, 0.871,
+                      0.870, 0.869, 0.868, 0.867, 0.866, 0.8655], index=idx)
+    return dict(cmdty_storage=storage, val_date="2019-09-15", inventory=50.0, forward_curve=fwd,
+                spot_volatility=vols, mean_reversion=5.5, time_step=1 / 365.0,
+                interest_rates=0.025, settlement_rule=lambda p: pd.Period("2019-10-20", "D"),
+                num_inventory_grid_points=112)
+
+
+def phase_tree(main_intrinsic):
+    """The trinomial-tree engine on the card against the port on the CPU:
+    the README oracle, the headline storage through a one-factor tree in
+    float32 and float64, the intrinsic tree, and float64 deltas of the
+    headline storage's monthly contracts.  The tree DP is torch ops (the
+    JAX package has no kernel for it): no kernel launches."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.compile import build_valuation_context
+    from storage_tpu_torch.engines import tree
+    from storage_tpu_torch.models.trinomial import build_trinomial_tree
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    tt.reset_launch_counts()
+    readme = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        for device in ("cuda", "cpu"):
+            readme[name, device] = tt.trinomial_value(**readme_tree_case(tt), dtype=dtype,
+                                                      device=device)
+    storage, fwd_curve, ir_curve, settlement_rule = build_case(tt)
+    ctx = build_valuation_context(storage, "2021-04-25", 1500.0, fwd_curve, ir_curve,
+                                  settlement_rule, 100, 1e-12)
+    vols = pd.Series(0.85, index=fwd_curve.index)
+    headline_tree = build_trinomial_tree(ctx.fwd, vols.reindex(ctx.periods).to_numpy(),
+                                         TREE_MEAN_REVERSION, 1 / 365.0)
+    K = headline_tree.num_levels
+    headline, seconds = {}, {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        for device in ("cuda", "cpu"):
+            tree_value = (lambda dt=dtype, dv=device: tree.tree_value(
+                ctx, headline_tree, dtype=dt, device=dv))
+            tree_value()  # warm
+            res, seconds[name, device] = timed(tree_value)
+            headline[name, device] = res.npv
+    intrinsic_tree, seconds["intrinsic_tree"] = timed(lambda: tt.intrinsic_tree_value(
+        storage, "2021-04-25", 1500.0, fwd_curve, ir_curve, settlement_rule, device="cuda"))
+    contracts = list(pd.period_range("2021-04", "2022-03", freq="M"))
+
+    def deltas(device):
+        return np.array(tt.trinomial_deltas(
+            storage, "2021-04-25", 1500.0, fwd_curve, vols, TREE_MEAN_REVERSION, 1 / 365.0,
+            ir_curve, settlement_rule, contracts, device=device))
+
+    card_deltas, seconds["deltas", "cuda"] = timed(lambda: deltas("cuda"))
+    cpu_deltas, seconds["deltas", "cpu"] = timed(lambda: deltas("cpu"))
+    counts = tt.launch_counts()
+    delta_err = float(np.abs(card_deltas - cpu_deltas).max() / np.abs(cpu_deltas).max())
+    intrinsic_rel = intrinsic_tree / main_intrinsic - 1.0
+    print(f"[tree] README oracle: float32 card {readme['float32', 'cuda']:.4f} / cpu "
+          f"{readme['float32', 'cpu']:.4f}, float64 card {readme['float64', 'cuda']:.6f} / cpu "
+          f"{readme['float64', 'cpu']:.6f} (reference {README_TREE_NPV})")
+    print(f"[tree] headline storage, {ctx.n_steps} steps, G = {ctx.num_grid_points}, one-factor "
+          f"tree of K = {K} levels (spot vol 0.85, mean reversion {TREE_MEAN_REVERSION}): float32 "
+          f"card {headline['float32', 'cuda']:.4f} in {seconds['float32', 'cuda']:.3f} s, cpu "
+          f"{headline['float32', 'cpu']:.4f} in {seconds['float32', 'cpu']:.3f} s; float64 card "
+          f"{headline['float64', 'cuda']:.6f} in {seconds['float64', 'cuda']:.3f} s, cpu "
+          f"{headline['float64', 'cpu']:.6f} in {seconds['float64', 'cpu']:.3f} s")
+    print(f"[tree] intrinsic tree {intrinsic_tree:.4f} in {seconds['intrinsic_tree']:.3f} s "
+          f"against intrinsic_value {main_intrinsic:.4f} (rel {intrinsic_rel:+.2e}); float64 "
+          f"deltas of {len(contracts)} monthly contracts: card {seconds['deltas', 'cuda']:.3f} s, "
+          f"cpu {seconds['deltas', 'cpu']:.3f} s, card against cpu {delta_err:.2e} of max|delta| "
+          f"({np.round(card_deltas, 3).tolist()}); launches {counts}")
+    for name in ("float32", "float64"):
+        rtol = TREE_NPV_RTOL[name]
+        for label, vals in (("README", readme), ("headline", headline)):
+            rel = abs(vals[name, "cuda"] / vals[name, "cpu"] - 1.0)
+            check(rel <= rtol, f"tree {label} {name}: card against cpu {rel:.2e} > {rtol}")
+        check(abs(readme[name, "cuda"] / README_TREE_NPV - 1.0) <= README_TREE_RTOL,
+              f"README tree NPV {readme[name, 'cuda']} outside {README_TREE_NPV} "
+              f"+- {README_TREE_RTOL:.0%}")
+    check(abs(intrinsic_rel) <= TREE_INTRINSIC_RTOL,
+          f"intrinsic tree {intrinsic_tree} vs intrinsic_value {main_intrinsic}")
+    check(np.isfinite(card_deltas).all() and delta_err <= TREE_DELTA_TOL,
+          f"tree deltas card against cpu {delta_err:.2e} > {TREE_DELTA_TOL}")
+    check(all(v == 0 for v in counts.values()), f"the tree launched kernels: {counts}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1274,6 +1667,14 @@ def main() -> int:
         hourly_counts, k1_hourly, k2_hourly = phase_hourly()
         reprice_counts = phase_reprice(main_npv)
         spot_counts = phase_spot_sim()
+        gc.collect()
+        torch.cuda.empty_cache()
+        f64_counts, recorded64, f64_every, f64_spans = phase_f64_main(main_npv, main_intrinsic)
+        k1_f64, k2_f64, k3_f64 = phase_f64_kernels(recorded64, f64_every, f64_spans)
+        del recorded64
+        gc.collect()
+        torch.cuda.empty_cache()
+        tree_counts = phase_tree(main_intrinsic)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1282,7 +1683,20 @@ def main() -> int:
         return 1
     paths = {"main": counts, "async": async_counts, "options": options_counts,
              "stream_main": stream_counts, "hourly": hourly_counts, "reprice": reprice_counts,
-             "spot_sim": spot_counts}
+             "spot_sim": spot_counts, "f64_main": f64_counts, "tree": tree_counts}
+    # The float64 variants' launches on f64_main, by mode: K2 once per span,
+    # the tail one of them; K3 one checkpoint pass and then spans per path set.
+    f64_launches = {
+        "K1": {"f64": f64_counts["backward_update"]},
+        "K2": {"f64": f64_counts["forward_sim"] - 1, "f64_tail": 1},
+        "K3": {"f64": 0, "f64_checkpoints": PATH_SETS,
+               "f64_span": f64_counts["path_sim"] - PATH_SETS}}
+
+    def f64_variants(kernel, measured):
+        return {name: dict(m, source=F64_SOURCES[kernel],
+                           launches_f64_main=f64_launches[kernel][name])
+                for name, m in measured.items()}
+
     kernels = [
         dict(name="backward_update", route="cuda",
              source="storage_tpu_torch/ops/csrc/backward_update.cu",
@@ -1290,19 +1704,19 @@ def main() -> int:
              launches=counts["backward_update"], **k1,
              launches_by_path={p: c["backward_update"] for p, c in paths.items()},
              variants={"D5": k1_d5, f"G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}": k1_large,
-                       **k1_hourly}),
+                       **k1_hourly, **f64_variants("K1", k1_f64)}),
         dict(name="forward_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/forward_sim.cu",
              replaces="storage_tpu/ops/pallas_forward.py:96",
              launches=counts["forward_sim"], **k2,
              launches_by_path={p: c["forward_sim"] for p, c in paths.items()},
-             variants={**k2_variants, **k2_hourly}),
+             variants={**k2_variants, **k2_hourly, **f64_variants("K2", k2_f64)}),
         dict(name="path_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/path_sim.cu",
              replaces="storage_tpu/models/simulation.py:264 (XLA code, no Pallas kernel)",
              launches=counts["path_sim"], **k3,
              launches_by_path={p: c["path_sim"] for p, c in paths.items()},
-             variants=k3_variants),
+             variants={**k3_variants, **f64_variants("K3", k3_f64)}),
     ]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -10,13 +10,16 @@ same draws as the JAX package for the same seed), and the backward and
 forward LSMC passes through three hand-written CUDA kernels (``ops/csrc/``).
 Horizons whose paths do not fit the device (hourly storage over years) are
 streamed span by span from checkpointed factor states.  Beside it:
-``intrinsic_value`` (linear or cubic-spline interpolation),
+``intrinsic_value`` (linear or cubic-spline interpolation), the trinomial
+tree (``trinomial_value``, ``trinomial_deltas``, ``intrinsic_tree_value``),
 ``MultiFactorModel`` (closed-form analytics), ``MultiFactorSpotSim`` (the
 standalone simulator) and, in ``engines.lsmc``, ``fit_policy`` /
-``LsmcPolicy`` / ``reprice`` (fit once, reprice many).  Every entry point
-that takes ``device`` defaults to ``"cuda"``; on ``device="cpu"`` the
-kernels' plain PyTorch versions run.  The tree engine, ``mesh`` and float64
-are not ported yet.
+``LsmcPolicy`` / ``reprice`` (fit once, reprice many).  Every engine runs in
+float32 (the default) or float64 (``dtype=torch.float64``; each of the three
+kernels has a float64 instantiation, and the draws are the JAX package's
+float64 draws).  Every entry point that takes ``device`` defaults to
+``"cuda"``; on ``device="cpu"`` the kernels' plain PyTorch versions run.
+``mesh`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,6 +40,12 @@ from .valuation import (
     MultiFactorValuationResults,
     multi_factor_value,
     three_factor_seasonal_value,
+)
+from .engines.tree import (
+    TreeValuationResults,
+    intrinsic_tree_value,
+    trinomial_deltas,
+    trinomial_value,
 )
 from .utils.frequencies import FREQ_TO_PERIOD_TYPE, SUPPORTED_FREQS
 from .utils.basis import (
@@ -86,6 +95,10 @@ __all__ = [
     "multi_factor_value",
     "three_factor_seasonal_value",
     "create_3_factor_season_params",
+    "TreeValuationResults",
+    "trinomial_value",
+    "trinomial_deltas",
+    "intrinsic_tree_value",
     "InventoryConstraintsCannotBeFulfilledError",
     "StorageError",
     "ValuationCancelledError",

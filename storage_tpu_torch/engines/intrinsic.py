@@ -5,8 +5,9 @@ Reference: ``IntrinsicStorageValuation<T>.Calculate``
 (``IntrinsicValuation/IntrinsicStorageValuation.cs:120-322``) and the Python
 wrapper ``intrinsic_value`` (``cmdty_storage/intrinsic.py:42-111``).
 
-The backward induction runs in float32 torch ops on the valuation's device,
-with the inventory-grid dimension vectorised, bang-bang decision sets in
+The backward induction runs in torch ops of the valuation's dtype (float32
+by default, or float64) on its device, with the inventory-grid dimension
+vectorised, bang-bang decision sets in
 fixed width and O(1) uniform-grid interpolation of the continuation value.
 The forward sweep (one scalar inventory path through the saved value
 functions) runs on the host in float64.  ``interpolation="cubic"``
@@ -21,7 +22,8 @@ import pandas as pd
 import torch
 
 from ..compile import SettlementRule, ValuationContext, build_valuation_context
-from ..exceptions import InventoryConstraintsCannotBeFulfilledError, not_ported
+from ..exceptions import InventoryConstraintsCannotBeFulfilledError
+from ..ops.csrc import check_dtype
 from ..ops.decisions import bang_bang_decision_set, max_value_and_index
 from ..ops.interp import cubic_spline_moments, fractional_index, interp_columns_cubic
 from ..ops.ratchets import interp_rates_host
@@ -57,7 +59,7 @@ def _empty_profile(freq: str) -> pd.DataFrame:
 
 
 def _backward_values(ctx: ValuationContext, terminal_values: np.ndarray, extra_decisions: int,
-                     device, cubic: bool = False) -> np.ndarray:
+                     device, cubic: bool = False, dtype=torch.float32) -> np.ndarray:
     """Backward induction (reference backward loop
     ``IntrinsicStorageValuation.cs:191-216``); returns the value function
     ``[n+1, G]`` on each period's grid.  ``cubic`` interpolates the
@@ -68,14 +70,14 @@ def _backward_values(ctx: ValuationContext, terminal_values: np.ndarray, extra_d
     G = ctx.num_grid_points
 
     def t(a):
-        return torch.tensor(np.asarray(a), dtype=torch.float32).to(device)
+        return torch.tensor(np.asarray(a), dtype=dtype).to(device)
 
     grids, lo, hi, pillars = (t(ctx.grids), t(ctx.inv_space.min_inventory),
                               t(ctx.inv_space.max_inventory), t(ctx.pillars))
     loss, ic, wc, ci, cw, icr, dfs, df0, fwd = (t(a) for a in (
         ctx.inventory_loss, ctx.inject_cost, ctx.withdraw_cost, ctx.cons_inject,
         ctx.cons_withdraw, ctx.inventory_cost_rate, ctx.df_settle, ctx.df_cost, ctx.fwd))
-    values = torch.empty((n + 1, G), dtype=torch.float32, device=device)
+    values = torch.empty((n + 1, G), dtype=dtype, device=device)
     values[n] = t(terminal_values)
     # The decision geometry and the immediate NPVs depend on no value
     # function, so they are computed for _GEOMETRY_CHUNK periods at once (a
@@ -229,11 +231,11 @@ def intrinsic_value(
     Args:
       settlement_rule: maps each delivery ``pd.Period`` to its settlement date;
         ``None`` settles on the period start day (undiscounted within period).
-      dtype: only float32 runs (the JAX package's float64 DP is not ported).
-      device: where the float32 backward DP runs.
+      dtype: the backward DP's dtype, torch.float32 or torch.float64 (any
+        other is refused by name).  The forward sweep is float64 either way.
+      device: where the backward DP runs.
     """
-    if dtype != torch.float32:
-        raise not_ported(f"dtype={dtype} (only float32 runs)", "Queue 1 item 12")
+    check_dtype("the intrinsic DP", dtype)
     freq = normalize_freq(cmdty_storage.freq)
     val_period = to_period(val_date, freq)
     if val_period > cmdty_storage.end:
@@ -261,12 +263,12 @@ def intrinsic_value(
         cmdty_storage, val_date, float(inventory), forward_curve, interest_rates,
         settlement_rule, num_inventory_grid_points, numerical_tolerance,
     )
-    return intrinsic_value_with_ctx(ctx, extra_decisions, interpolation, device)
+    return intrinsic_value_with_ctx(ctx, extra_decisions, interpolation, device, dtype)
 
 
 def intrinsic_value_with_ctx(
     ctx: ValuationContext, extra_decisions: int = 0, interpolation: str = "linear",
-    device="cuda",
+    device="cuda", dtype=torch.float32,
 ) -> IntrinsicValuationResults:
     """Intrinsic valuation on an already-compiled context (the LSMC entry point
     shares one context build between both engines)."""
@@ -278,7 +280,7 @@ def intrinsic_value_with_ctx(
         terminal = np.asarray(ctx.storage.terminal_npv_fn(ctx.fwd[n], grid_end), dtype=np.float64)
         terminal = np.broadcast_to(terminal, grid_end.shape)
     values = _backward_values(ctx, terminal, extra_decisions, device,
-                              cubic=interpolation == "cubic")
+                              cubic=interpolation == "cubic", dtype=dtype)
     rows = _forward_sweep(ctx, np.asarray(values, dtype=np.float64), extra_decisions,
                           interpolation)
     npv = float(rows[:, PROFILE_COLUMNS.index("period_pv")].sum())

@@ -98,7 +98,8 @@ class LsmcArrays(NamedTuple):
 
 
 class LsmcDeviceInputs(NamedTuple):
-    """Step-indexed float32 tensors compiled from a :class:`ValuationContext`."""
+    """Step-indexed tensors of the run's dtype compiled from a
+    :class:`ValuationContext`."""
 
     grids: torch.Tensor  # [n+1, G]
     space_lo: torch.Tensor  # [n+1]
@@ -343,7 +344,7 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
     else:
         end_spots = spot_from_factors(reg.last(), sim_vols[-1], sim_drift[-1])
         v_end = torch.as_tensor(terminal_fn(end_spots[:, None], dev.grids[n][None, :]),
-                                dtype=torch.float32, device=sim_vols.device)
+                                dtype=sim_vols.dtype, device=sim_vols.device)
         v = v_end.broadcast_to((S, G)).T.contiguous()
 
     if m:
@@ -591,7 +592,7 @@ def _assemble_arrays(stacked, inv_final, pv_by_sim, end_spots, terminal_fn,
     # End-period terminal PV (reference :563-579; valuation sims here, see
     # module docstring).
     if terminal_fn is not None:
-        terminal_pv = torch.as_tensor(terminal_fn(end_spots, inv_final), dtype=torch.float32,
+        terminal_pv = torch.as_tensor(terminal_fn(end_spots, inv_final), dtype=inv_final.dtype,
                                       device=inv_final.device).broadcast_to((S,))
     else:
         terminal_pv = torch.zeros_like(inv_final)
@@ -708,12 +709,12 @@ def _program_statics(ctx: ValuationContext, spec: BasisSpec, extra_decisions: in
     )
 
 
-def _on_device(x, device):
-    """``x`` as a contiguous float32 tensor on ``device``; a streaming source
-    (which lives on its own device) as it is."""
+def _on_device(x, device, dtype=torch.float32):
+    """``x`` as a contiguous tensor of ``dtype`` on ``device``; a streaming
+    source (which lives on its own device, in its own dtype) as it is."""
     if isinstance(x, StreamingFactorSource):
         return x
-    return torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
+    return torch.as_tensor(x, dtype=dtype).to(device).contiguous()
 
 
 def run_lsmc(
@@ -730,8 +731,11 @@ def run_lsmc(
     cancelled: Optional[Callable[[], bool]] = None,
     collect_panels: bool = False,
     stopwatches=None,
+    dtype=torch.float32,
 ) -> LsmcArrays:
-    """Run backward induction + forward simulation on one device.
+    """Run backward induction + forward simulation on one device, in
+    ``dtype`` (float32 or float64: the kernels' instantiation of that type;
+    the path-set factories must return paths of it).
 
     ``reg_sims``/``val_sims`` are factories so the regression path set can be
     freed before the valuation set is simulated — at production path counts
@@ -743,9 +747,9 @@ def run_lsmc(
     walk the source's spans instead, with or without hooks.
     """
     device = torch.device(device)
-    dev = device_inputs(ctx, device)
+    dev = device_inputs(ctx, device, dtype)
     statics = _program_statics(ctx, spec, extra_decisions)
-    sim_vols, sim_drift = _on_device(sim_vols, device), _on_device(sim_drift, device)
+    sim_vols, sim_drift = _on_device(sim_vols, device, dtype), _on_device(sim_drift, device, dtype)
     chunked = on_progress_update is not None or cancelled is not None
     num_chunks = NUM_PROGRESS_CHUNKS if chunked else 1
     after_span = _span_hook(device, on_progress_update, cancelled) if chunked else None
@@ -789,8 +793,9 @@ class LsmcPolicy(NamedTuple):
     (``LsmcStorageValuation.cs:156, 206, 350, 394``).  A policy can be saved
     (``save``) and repriced against fresh path sets without re-running the
     backward induction — e.g. intraday re-pricing or standalone scenario
-    runs.  The ``.npz`` file has the JAX package's six field names, so a file
-    saved by either package loads in the other.
+    runs.  The ``.npz`` file has the JAX package's six field names and keeps
+    the policy's dtype, so a file saved by either package, in float32 or
+    float64, loads in the other.
     """
 
     coeffs: torch.Tensor  # [m, B, G]
@@ -804,20 +809,22 @@ class LsmcPolicy(NamedTuple):
         np.savez(path, **{f: getattr(self, f).detach().cpu().numpy() for f in self._fields})
 
     @classmethod
-    def from_numpy(cls, arrays, device="cuda") -> "LsmcPolicy":
+    def from_numpy(cls, arrays, device="cuda", dtype=torch.float32) -> "LsmcPolicy":
         """The policy from a mapping or an object with the six fields (an
         ``.npz``, the JAX package's ``LsmcPolicy``, a dict of arrays), as
-        float32 tensors on ``device``."""
+        tensors of ``dtype`` on ``device``."""
         def field(name):
             a = getattr(arrays, name) if hasattr(arrays, "_fields") else arrays[name]
-            return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
         return cls(**{f: field(f) for f in cls._fields})
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "LsmcPolicy":
+    def load(cls, path: str, device="cuda", dtype=torch.float32) -> "LsmcPolicy":
+        """A saved policy as tensors of ``dtype`` on ``device`` (the JAX
+        package's ``LsmcPolicy.load(path, dtype)``)."""
         with np.load(path) as data:
-            return cls.from_numpy(data, device)
+            return cls.from_numpy(data, device, dtype)
 
 
 def fit_policy(
@@ -828,12 +835,15 @@ def fit_policy(
     spec: BasisSpec,
     extra_decisions: int = 0,
     device="cuda",
+    dtype=torch.float32,
 ) -> LsmcPolicy:
-    """Run only the backward induction and capture the fitted policy."""
+    """Run only the backward induction, in ``dtype``, and capture the fitted
+    policy."""
     device = torch.device(device)
     backward_npv, cont_mean0, coeffs, mus, sds, vbars = _backward_program(
-        _on_device(reg_factors, device), _on_device(sim_vols, device), _on_device(sim_drift, device),
-        device_inputs(ctx, device), **_program_statics(ctx, spec, extra_decisions))
+        _on_device(reg_factors, device, dtype), _on_device(sim_vols, device, dtype),
+        _on_device(sim_drift, device, dtype), device_inputs(ctx, device, dtype),
+        **_program_statics(ctx, spec, extra_decisions))
     return LsmcPolicy(coeffs, mus, sds, vbars, cont_mean0, backward_npv)
 
 
@@ -848,12 +858,15 @@ def reprice(
     extra_decisions: int = 0,
     collect_panels: bool = False,
     device="cuda",
+    dtype=torch.float32,
 ) -> LsmcArrays:
-    """Forward-simulate a previously fitted policy on a fresh path set."""
+    """Forward-simulate a previously fitted policy on a fresh path set, in
+    ``dtype`` (the policy is cast to it)."""
     device = torch.device(device)
-    policy = LsmcPolicy(*(t.to(device) for t in policy))
+    policy = LsmcPolicy(*(t.to(device=device, dtype=dtype) for t in policy))
     return _forward_program(
-        _on_device(val_factors, device), _on_device(sim_vols, device), _on_device(sim_drift, device),
+        _on_device(val_factors, device, dtype), _on_device(sim_vols, device, dtype),
+        _on_device(sim_drift, device, dtype),
         policy.cont_mean0, policy.coeffs, policy.mus, policy.sds, policy.vbars,
-        device_inputs(ctx, device), policy.backward_npv, discount_deltas=discount_deltas,
+        device_inputs(ctx, device, dtype), policy.backward_npv, discount_deltas=discount_deltas,
         collect_panels=collect_panels, **_program_statics(ctx, spec, extra_decisions))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from .compile import ValuationContext
 from .engines.lsmc import LsmcPolicy
@@ -49,12 +50,11 @@ def context_from_numpy(ctx) -> ValuationContext:
     )
 
 
-def lsmc_policy_from_numpy(policy, device="cuda") -> LsmcPolicy:
-    """The port's :class:`LsmcPolicy` (float32 tensors on ``device``) from a
-    fitted policy of either package: the path of an ``.npz`` written by
-    ``LsmcPolicy.save``, a mapping of the six field names to arrays, or an
-    object with those fields (the JAX package's ``LsmcPolicy``; anything
-    ``numpy.asarray`` accepts per field)."""
+def lsmc_policy_from_numpy(policy, device="cuda", dtype=torch.float32) -> LsmcPolicy:
+    """The port's :class:`LsmcPolicy` (tensors of ``dtype`` on ``device``) from a fitted policy of either package: the path of an
+    ``.npz`` written by ``LsmcPolicy.save``, a mapping of the six field names
+    to arrays, or an object with those fields (the JAX package's
+    ``LsmcPolicy``; anything ``numpy.asarray`` accepts per field)."""
     if isinstance(policy, (str, os.PathLike)):
-        return LsmcPolicy.load(policy, device)
-    return LsmcPolicy.from_numpy(policy, device)
+        return LsmcPolicy.load(policy, device, dtype)
+    return LsmcPolicy.from_numpy(policy, device, dtype)

@@ -16,6 +16,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import pandas as pd
+import torch
 
 from ..utils.daycount import act_365
 from ..utils.frequencies import PeriodLike, normalize_freq, to_period
@@ -346,7 +347,8 @@ class MultiFactorSpotSim:
     threefry (the JAX package's draws for the same seed) instead of Mersenne
     Twister, so seeded values differ from the reference but are deterministic
     per seed.  On a CUDA ``device`` (the default) the paths come from one
-    launch of the path kernel.
+    launch of the path kernel, in ``dtype`` (float32 or float64, the JAX
+    package's draws of that dtype).
 
     .. note:: Seeded values are reproducible **per release only**: a kernel
        re-layout may re-key the RNG stream at any minor version, so pin the
@@ -365,6 +367,7 @@ class MultiFactorSpotSim:
         antithetic: bool = False,
         time_func=None,
         device="cuda",
+        dtype=torch.float32,
     ):
         factors = list(factors)
         factor_corrs = validate_multi_factor_params(factors, factor_corrs)
@@ -379,6 +382,7 @@ class MultiFactorSpotSim:
         self._seed = seed
         self._antithetic = antithetic
         self._device = device
+        self._dtype = dtype
         self._num_factors = len(factors)
 
     def simulate(self, num_sims: int) -> pd.DataFrame:
@@ -389,5 +393,6 @@ class MultiFactorSpotSim:
     def simulate_with_factors(self, num_sims: int):
         """Spots and Markov factor states as tensors (``[n, S]``, ``[n, F, S]``)."""
         return simulate_spot_paths(
-            self._coeffs, num_sims, self._seed, self._antithetic, device=self._device
+            self._coeffs, num_sims, self._seed, self._antithetic, device=self._device,
+            dtype=self._dtype,
         )

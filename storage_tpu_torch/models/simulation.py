@@ -18,7 +18,12 @@ its "partitionable" bit layout, normals as ``sqrt(2) * erf_inv(u)``).  This
 module reproduces that generator, so that the port draws the same paths from
 the same seed: the same ``fold_in`` block keying, the same bits-to-uniform
 map and XLA's float32 ``erf_inv`` polynomial (``torch.erfinv`` differs by
-~2e-5).
+~2e-5).  In float64 (``dtype=torch.float64``) a draw takes both 32-bit words
+of the hash as one 64-bit word, keeps 52 mantissa bits, and goes through
+XLA's float64 ``erf_inv`` (Giles' three-range expansion) and XLA's
+``log1p`` (a rational approximation below ``sqrt(2) - 1``, ``log(1 + x)``
+above it), so the float64 draws are the JAX package's to 3 ulp (XLA's CPU
+code fuses their multiply-adds, the port rounds every step on its own).
 
 :func:`simulate_factor_paths` sends a CUDA device to one fused kernel
 (``ops/csrc/path_sim.cu``: hash, normal map and OU update per sim in
@@ -56,6 +61,49 @@ _ERFINV_LT5 = (
 _ERFINV_GE5 = (
     -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+)
+# XLA's float64 erf_inv: Giles' double-precision expansion in three ranges
+# of w = -log1p(-x^2): below 6.25 (23 terms), below 16 (19), beyond (17).
+# The coefficients are the ones XLA compiles (read from its HLO).
+_ERFINV64_LT6_25 = (
+    -3.6444120640178196996e-21, -1.685059138182016589e-19, 1.2858480715256400167e-18,
+    1.115787767802518096e-17, -1.333171662854620906e-16, 2.0972767875968561637e-17,
+    6.6376381343583238325e-15, -4.0545662729752068639e-14, -8.1519341976054721522e-14,
+    2.6335093153082322977e-12, -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+    1.051212273321532285e-09, -4.1126339803469836976e-09, -2.9070369957882005086e-08,
+    4.2347877827932403518e-07, -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+    0.0001867342080340571352, -0.00074070253416626697512, -0.0060336708714301490533,
+    0.24015818242558961693, 1.6536545626831027356,
+)
+_ERFINV64_LT16 = (
+    2.2137376921775787049e-09, 9.0756561938885390979e-08, -2.7517406297064545428e-07,
+    1.8239629214389227755e-08, 1.5027403968909827627e-06, -4.013867526981545969e-06,
+    2.9234449089955446044e-06, 1.2475304481671778723e-05, -4.7318229009055733981e-05,
+    6.8284851459573175448e-05, 2.4031110387097893999e-05, -0.0003550375203628474796,
+    0.00095328937973738049703, -0.0016882755560235047313, 0.0024914420961078508066,
+    -0.0037512085075692412107, 0.005370914553590063617, 1.0052589676941592334,
+    3.0838856104922207635,
+)
+_ERFINV64_GE16 = (
+    -2.7109920616438573243e-11, -2.5556418169965252055e-10, 1.5076572693500548083e-09,
+    -3.7894654401267369937e-09, 7.6157012080783393804e-09, -1.4960026627149240478e-08,
+    2.9147953450901080826e-08, -6.7711997758452339498e-08, 2.2900482228026654717e-07,
+    -9.9298272942317002539e-07, 4.5260625972231537039e-06, -1.9681778105531670567e-05,
+    7.5995277030017761139e-05, -0.00021503011930044477347, -0.00013871931833623122026,
+    1.0103004648645343977, 4.8499064014085844221,
+)
+# XLA's log1p: below this |x|, the Cephes rational approximation
+# x - x^2 / 2 + x^3 P(x) / Q(x) (coefficients highest power first); above
+# it log(1 + x).
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_P = (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+    2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1,
+)
+_LOG1P_Q = (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+    3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1,
 )
 
 
@@ -173,19 +221,67 @@ def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
     return threefry2x32(key[0], key[1], 0, int(data) & _MASK32)
 
 
-def random_bits(key: Tuple[int, int], shape, device) -> torch.Tensor:
-    """32-bit random words (as int64) in jax's partitionable layout.
-
-    Element ``i`` of the flattened shape hashes the counter pair
-    ``(i >> 32, i & 0xffffffff)`` and XORs the two output words, so values
-    depend on the requested shape.
-    """
+def _hash_words(key: Tuple[int, int], shape, device):
+    """The two 32-bit output words (int64 tensors of ``shape``) of element
+    ``i``'s counter pair ``(i >> 32, i & 0xffffffff)``: jax's partitionable
+    layout, so values depend on the requested shape."""
     size = int(np.prod(shape))
     if size >= 2**32:
         raise ValueError("random_bits supports fewer than 2**32 elements.")
     counts = torch.arange(size, dtype=torch.int64, device=device)
     o1, o2 = threefry2x32(key[0], key[1], 0, counts)
-    return (o1 ^ o2).reshape(shape)
+    return o1.reshape(shape), o2.reshape(shape)
+
+
+def random_bits(key: Tuple[int, int], shape, device) -> torch.Tensor:
+    """32-bit random words (as int64), ``jax.random.bits``: the two hash
+    words XORed.  A float64 draw takes the words apart instead (see
+    :func:`uniform_from_words64`)."""
+    o1, o2 = _hash_words(key, shape, device)
+    return o1 ^ o2
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float64 ``log1p``: the Cephes rational approximation below
+    ``sqrt(2) - 1`` in magnitude, ``log(1 + x)`` above it, each step rounded
+    on its own (``ops/csrc/path_sim.cu`` evaluates the same steps)."""
+    def horner(coefs):
+        p = torch.zeros_like(x)
+        for c in coefs:
+            p = p * x + c
+        return p
+
+    x2 = x * x
+    small = x + (-0.5 * x2 + (x * x2) * (horner(_LOG1P_P) / horner(_LOG1P_Q)))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, torch.log(x + 1.0))
+
+
+def _erf_inv_f64(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float64 ``erf_inv`` (Giles' three-range expansion)."""
+    w = -_xla_log1p(-x * x)
+    lt6 = w < 6.25
+    lt16 = w < 16.0
+
+    def coef(i):
+        c = x.new_tensor(_ERFINV64_LT6_25[i])
+        if i < len(_ERFINV64_LT16):
+            c = torch.where(lt6, c, x.new_tensor(_ERFINV64_LT16[i]))
+        if i < len(_ERFINV64_GE16):
+            c = torch.where(lt16, c, x.new_tensor(_ERFINV64_GE16[i]))
+        return c
+
+    w = torch.where(lt6, w - 3.125,
+                    torch.sqrt(w) - torch.where(lt16, x.new_tensor(3.25), x.new_tensor(5.0)))
+    p = coef(0)
+    for i in range(1, len(_ERFINV64_LT6_25)):
+        step = coef(i) + p * w
+        if i < len(_ERFINV64_GE16):
+            p = step
+        elif i < len(_ERFINV64_LT16):  # the two outer ranges' polynomials have ended
+            p = torch.where(lt16, step, p)
+        else:
+            p = torch.where(lt6, step, p)
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
 def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
@@ -208,8 +304,27 @@ def uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
-def normal(key: Tuple[int, int], shape, device) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``."""
+def uniform_from_words64(o1: torch.Tensor, o2: torch.Tensor, minval: float,
+                         maxval: float) -> torch.Tensor:
+    """``jax.random.uniform`` in float64 from the hash words of 64-bit random
+    words ``o1 << 32 | o2``: their top 52 bits as the mantissa, then scale.
+    torch has no logical right shift of int64, so the mantissa is taken as
+    ``(o1 << 20) | (o2 >> 12)`` (both words lie in [0, 2^32))."""
+    mant = (o1 << 20) | (o2 >> 12) | 0x3FF0000000000000
+    floats = mant.view(torch.float64) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float64, device=o1.device)
+    hi = torch.tensor(maxval, dtype=torch.float64, device=o1.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def normal(key: Tuple[int, int], shape, device, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for float32 or float64."""
+    if dtype == torch.float64:
+        lo = float(np.nextafter(-1.0, 0.0))
+        u = uniform_from_words64(*_hash_words(key, shape, device), lo, 1.0)
+        return _erf_inv_f64(u) * float(np.sqrt(2))
+    if dtype != torch.float32:
+        raise ValueError(f"normal draws float32 or float64 (got {dtype}).")
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform_from_bits(random_bits(key, shape, device), lo, 1.0)
     return _erf_inv_f32(u) * float(np.float32(np.sqrt(2)))
@@ -226,35 +341,36 @@ _DRAW_BLOCK = 16
 
 
 def _block_normals(key, b0: int, num_factors: int, num_sims: int, antithetic: bool,
-                   device) -> torch.Tensor:
+                   device, dtype=torch.float32) -> torch.Tensor:
     """Normals for the draw block starting at step ``b0`` — always the full
     ``[_DRAW_BLOCK, F, S]`` shape (callers slice partial tail blocks), since
     threefry values depend on the requested shape."""
     k = fold_in(key, b0)
     if antithetic:
         half = (num_sims + 1) // 2
-        z = normal(k, (_DRAW_BLOCK, num_factors, half), device)
+        z = normal(k, (_DRAW_BLOCK, num_factors, half), device, dtype)
         return torch.cat([z, -z], dim=-1)[:, :, :num_sims]
-    return normal(k, (_DRAW_BLOCK, num_factors, num_sims), device)
+    return normal(k, (_DRAW_BLOCK, num_factors, num_sims), device, dtype)
 
 
 def _ou_steps(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int], antithetic: bool,
-              device, y0: Optional[torch.Tensor], step0: int, num_steps: int):
+              device, y0: Optional[torch.Tensor], step0: int, num_steps: int,
+              dtype=torch.float32):
     """Yield ``(i, y)``: the factor state ``[F, S]`` after local step ``i`` of
     the ``num_steps`` steps from absolute step ``step0`` (a multiple of the
     draw block), entered with state ``y0`` (None: zeros).  Each ``y`` is a new
-    tensor."""
+    tensor of ``dtype``."""
     if step0 % _DRAW_BLOCK:
         raise ValueError(f"step0 ({step0}) must be a multiple of {_DRAW_BLOCK}.")
     num_factors = coeffs.decay.shape[1]
-    decay = torch.as_tensor(coeffs.decay, dtype=torch.float32).to(device)
-    chol = torch.as_tensor(coeffs.chol, dtype=torch.float32).to(device)
+    decay = torch.as_tensor(coeffs.decay, dtype=dtype).to(device)
+    chol = torch.as_tensor(coeffs.chol, dtype=dtype).to(device)
     if y0 is None:
-        y = torch.zeros((num_factors, num_sims), dtype=torch.float32, device=device)
+        y = torch.zeros((num_factors, num_sims), dtype=dtype, device=device)
     else:
         y = y0
     for b0 in range(step0, step0 + num_steps, _DRAW_BLOCK):
-        z_b = _block_normals(key, b0, num_factors, num_sims, antithetic, device)
+        z_b = _block_normals(key, b0, num_factors, num_sims, antithetic, device, dtype)
         for c in range(min(_DRAW_BLOCK, step0 + num_steps - b0)):
             k = b0 + c
             # Exact OU update: decay + correlated increment, the rank-F
@@ -276,16 +392,19 @@ def simulate_factor_paths_reference(
     y0: Optional[torch.Tensor] = None,
     step0: int = 0,
     num_steps: Optional[int] = None,
+    dtype=torch.float32,
 ) -> torch.Tensor:
     """Plain PyTorch version of the path kernel: factor paths ``[n, F, S]``
-    (float32) on ``device`` for the threefry ``key``.  With ``y0``/``step0``/
-    ``num_steps``: the steps ``[step0, step0 + num_steps)`` of the horizon
-    entered with state ``y0 [F, S]`` (``step0`` a multiple of 16)."""
+    of ``dtype`` (float32 or float64) on ``device`` for the threefry
+    ``key``.  With ``y0``/``step0``/``num_steps``: the steps
+    ``[step0, step0 + num_steps)`` of the horizon entered with state
+    ``y0 [F, S]`` (``step0`` a multiple of 16)."""
     num_factors = coeffs.decay.shape[1]
     if num_steps is None:
         num_steps = coeffs.decay.shape[0] - step0
-    out = torch.empty((num_steps, num_factors, num_sims), dtype=torch.float32, device=device)
-    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, y0, step0, num_steps):
+    out = torch.empty((num_steps, num_factors, num_sims), dtype=dtype, device=device)
+    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, y0, step0, num_steps,
+                          dtype):
         out[i] = y
     return out
 
@@ -295,15 +414,16 @@ def _num_checkpoints(num_steps: int, every: int) -> int:
 
 
 def factor_checkpoints_reference(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
-                                 antithetic: bool, every: int, device=None) -> torch.Tensor:
+                                 antithetic: bool, every: int, device=None,
+                                 dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of the path kernel's checkpoint mode: the factor
     states ENTERING steps ``0, every, 2 every, ...`` as ``[num_ckpt, F, S]``
     (``every`` a multiple of 16)."""
     n, num_factors = coeffs.decay.shape
     num_ckpt = _num_checkpoints(n, every)
-    out = torch.zeros((num_ckpt, num_factors, num_sims), dtype=torch.float32, device=device)
+    out = torch.zeros((num_ckpt, num_factors, num_sims), dtype=dtype, device=device)
     last = (num_ckpt - 1) * every  # no state entered after it is kept
-    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, None, 0, last):
+    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, None, 0, last, dtype):
         if (i + 1) % every == 0:
             out[(i + 1) // every] = y
     return out
@@ -313,37 +433,41 @@ class _PathKernelTables(NamedTuple):
     """What every launch of the path kernel over one horizon and key reads."""
 
     keys: torch.Tensor  # [ceil(n / 16), 2] int32 view of the uint32 block keys
-    coef: torch.Tensor  # [n, F + F F] rows [decay | chol row-major]
+    coef: torch.Tensor  # [n, F + F F] rows [decay | chol row-major], of the paths' dtype
     num_steps: int
     num_factors: int
 
 
-def _path_kernel_tables(coeffs: SimCoefficients, key: Tuple[int, int], device) -> _PathKernelTables:
+def _path_kernel_tables(coeffs: SimCoefficients, key: Tuple[int, int], device,
+                        dtype=torch.float32) -> _PathKernelTables:
     """One key per 16-step draw block, hashed on the host (n / 16 of them), and
-    the per-step coefficient rows, on ``device``."""
+    the per-step coefficient rows in ``dtype``, on ``device``."""
     n, num_factors = coeffs.decay.shape
     # fold_in vectorised over the block starts: one hash of the counters (0, b0).
     starts = torch.arange(0, n, _DRAW_BLOCK, dtype=torch.int64)
     k0, k1 = threefry2x32(key[0], key[1], 0, starts)
     keys = torch.stack([k0, k1], dim=1).numpy().astype(np.uint32)
-    coef = np.concatenate([coeffs.decay, coeffs.chol.reshape(n, -1)], axis=1).astype(np.float32)
-    return _PathKernelTables(torch.from_numpy(keys.view(np.int32)).to(device),
-                             torch.from_numpy(coef).to(device), n, num_factors)
+    coef = torch.as_tensor(np.concatenate([coeffs.decay, coeffs.chol.reshape(n, -1)], axis=1),
+                           dtype=dtype)
+    return _PathKernelTables(torch.from_numpy(keys.view(np.int32)).to(device), coef.to(device),
+                             n, num_factors)
 
 
 def _launch_path_sim(tables: _PathKernelTables, out: torch.Tensor, num_sims: int,
                      antithetic: bool, y0: Optional[torch.Tensor] = None, step0: int = 0,
                      num_steps: Optional[int] = None, every: int = 0) -> torch.Tensor:
-    """One launch of ``path_sim_kernel`` into ``out`` (CUDA only): the steps
+    """One launch of ``path_sim_kernel`` into ``out`` (CUDA only; the float32
+    or the float64 mode, by ``out``'s dtype): the steps
     ``[step0, step0 + num_steps)`` entered with ``y0`` (None: zeros); paths
     when ``every`` is 0, else the checkpoints every ``every`` steps."""
     from ..ops import count_launch
-    from ..ops.csrc import check_launch, check_operand, kernels
+    from ..ops.csrc import check_dtype, check_launch, check_operand, kernels
 
     device = out.device
     if device.type != "cuda":
         raise ValueError(f"the path kernel needs a CUDA device (got {device}); it never runs "
                          "on the CPU")
+    check_dtype("the path_sim kernel", out.dtype)
     F = tables.num_factors
     if num_steps is None:
         num_steps = tables.num_steps - step0
@@ -354,16 +478,19 @@ def _launch_path_sim(tables: _PathKernelTables, out: torch.Tensor, num_sims: int
         raise ValueError(f"steps [{step0}, {step0 + num_steps}) lie outside the horizon "
                          f"of {tables.num_steps} steps.")
     rows = _num_checkpoints(num_steps, every) if every else num_steps
-    check_operand("out", out, (rows, F, num_sims))
+    check_operand("out", out, (rows, F, num_sims), out.dtype)
+    check_operand("coef", tables.coef, (tables.num_steps, F + F * F), out.dtype)
     if y0 is not None:
-        check_operand("y0", y0, (F, num_sims))
+        check_operand("y0", y0, (F, num_sims), out.dtype)
     if out.numel() == 0:
         return out
     draw_sims = (num_sims + 1) // 2 if antithetic else num_sims
     if _DRAW_BLOCK * F * draw_sims >= 2**32:
         raise ValueError("random_bits supports fewer than 2**32 elements.")
+    launch = kernels().path_sim_launch if out.dtype == torch.float32 else \
+        kernels().path_sim_f64_launch
     with torch.cuda.device(device):
-        err = kernels().path_sim_launch(
+        err = launch(
             tables.keys.data_ptr(), tables.coef.data_ptr(),
             None if y0 is None else y0.data_ptr(), out.data_ptr(), num_sims, draw_sims, step0,
             num_steps, F, every, torch.cuda.current_stream(device).cuda_stream)
@@ -373,13 +500,14 @@ def _launch_path_sim(tables: _PathKernelTables, out: torch.Tensor, num_sims: int
 
 
 def _simulate_factor_paths_cuda(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
-                                antithetic: bool, device) -> torch.Tensor:
+                                antithetic: bool, device, dtype=torch.float32) -> torch.Tensor:
     """Launch ``path_sim_kernel`` (CUDA devices only): one thread per drawn
     sim, one launch per path set."""
     device = torch.device(device)
     n, num_factors = coeffs.decay.shape
-    out = torch.empty((n, num_factors, num_sims), dtype=torch.float32, device=device)
-    return _launch_path_sim(_path_kernel_tables(coeffs, key, device), out, num_sims, antithetic)
+    out = torch.empty((n, num_factors, num_sims), dtype=dtype, device=device)
+    return _launch_path_sim(_path_kernel_tables(coeffs, key, device, dtype), out, num_sims,
+                            antithetic)
 
 
 def simulate_factor_paths(
@@ -389,20 +517,23 @@ def simulate_factor_paths(
     antithetic: bool = False,
     key: Optional[Tuple[int, int]] = None,
     device="cuda",
+    dtype=torch.float32,
 ) -> torch.Tensor:
-    """Simulate Markov factor state paths ``[n, F, S]`` (float32) on ``device``.
+    """Simulate Markov factor state paths ``[n, F, S]`` of ``dtype`` (float32
+    or float64) on ``device``.
 
-    Draws are those of the JAX package for the same threefry key: the
-    default key is ``prng_key(seed)``.  A CUDA device goes to the kernel;
-    ``device="cpu"`` to :func:`simulate_factor_paths_reference`.
+    Draws are those of the JAX package for the same threefry key and dtype:
+    the default key is ``prng_key(seed)``.  A CUDA device goes to the
+    kernel; ``device="cpu"`` to :func:`simulate_factor_paths_reference`.
     """
     if key is None:
         if seed is None:
             seed = np.random.SeedSequence().entropy % (2**63)
         key = prng_key(int(seed))
     if torch.device(device).type == "cpu":
-        return simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, device)
-    return _simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, device)
+        return simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, device,
+                                               dtype=dtype)
+    return _simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, device, dtype)
 
 
 class StreamingFactorSource:
@@ -424,13 +555,15 @@ class StreamingFactorSource:
     """
 
     def __init__(self, coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
-                 antithetic: bool = False, every: int = 512, device="cuda"):
+                 antithetic: bool = False, every: int = 512, device="cuda",
+                 dtype=torch.float32):
         self.num_steps = int(coeffs.decay.shape[0])
         self.num_factors = int(coeffs.decay.shape[1])
         self.num_sims = int(num_sims)
         self.antithetic = bool(antithetic)
         self.every = max(_DRAW_BLOCK, -(-int(every) // _DRAW_BLOCK) * _DRAW_BLOCK)
         self.device = torch.device(device)
+        self.dtype = dtype
         self._key = key
         self._coeffs = coeffs
         self._tables = None  # the kernel's keys and coefficient rows, uploaded once
@@ -455,7 +588,7 @@ class StreamingFactorSource:
         if self.device.type == "cpu":
             return False
         if self._tables is None:
-            self._tables = _path_kernel_tables(self._coeffs, self._key, self.device)
+            self._tables = _path_kernel_tables(self._coeffs, self._key, self.device, self.dtype)
         return True
 
     def _checkpoints(self) -> torch.Tensor:
@@ -463,13 +596,13 @@ class StreamingFactorSource:
             if self._on_card():
                 out = torch.empty(
                     (_num_checkpoints(self.num_steps, self.every), self.num_factors,
-                     self.num_sims), dtype=torch.float32, device=self.device)
+                     self.num_sims), dtype=self.dtype, device=self.device)
                 self._ckpts = _launch_path_sim(self._tables, out, self.num_sims,
                                                self.antithetic, every=self.every)
             else:
                 self._ckpts = factor_checkpoints_reference(
                     self._coeffs, self.num_sims, self._key, self.antithetic, self.every,
-                    self.device)
+                    self.device, self.dtype)
         return self._ckpts
 
     def factors(self, a: int, b: int) -> torch.Tensor:
@@ -496,13 +629,13 @@ class StreamingFactorSource:
             y0 = self._checkpoints()[i]
             if self._on_card():
                 out = torch.empty((s1 - s0, self.num_factors, self.num_sims),
-                                  dtype=torch.float32, device=self.device)
+                                  dtype=self.dtype, device=self.device)
                 _launch_path_sim(self._tables, out, self.num_sims, self.antithetic, y0=y0,
                                  step0=s0, num_steps=s1 - s0)
             else:
                 out = simulate_factor_paths_reference(
                     self._coeffs, self.num_sims, self._key, self.antithetic, self.device,
-                    y0=y0, step0=s0, num_steps=s1 - s0)
+                    y0=y0, step0=s0, num_steps=s1 - s0, dtype=self.dtype)
             self._span_cache = (i, out)
         return out[a - s0:b - s0]
 
@@ -525,6 +658,7 @@ def simulate_spot_paths(
     antithetic: bool = False,
     key: Optional[Tuple[int, int]] = None,
     device="cuda",
+    dtype=torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Simulate spot paths and Markov factor states.
 
@@ -535,9 +669,9 @@ def simulate_spot_paths(
     Returns:
       spots ``[n, S]``, factors ``[n, F, S]`` on ``device``.
     """
-    factors = simulate_factor_paths(coeffs, num_sims, seed, antithetic, key, device)
+    factors = simulate_factor_paths(coeffs, num_sims, seed, antithetic, key, device, dtype)
     dev = factors.device
     spots = spots_from_factor_paths(
-        factors, torch.as_tensor(coeffs.vols, dtype=torch.float32).to(dev),
-        torch.as_tensor(coeffs.log_fwd_drift, dtype=torch.float32).to(dev))
+        factors, torch.as_tensor(coeffs.vols, dtype=dtype).to(dev),
+        torch.as_tensor(coeffs.log_fwd_drift, dtype=dtype).to(dev))
     return spots, factors

@@ -2,8 +2,9 @@
 exact regression solve assembled from its partials.
 
 Counterpart of the JAX package's ``ops/pallas_backward.py``.  The kernel
-(``csrc/backward_update.cu``) replaces ``_backward_kernel`` there; it computes
-the XLA math of ``_backward_step_core`` (``engines/lsmc.py``) in float32 with
+(``csrc/backward_update.cu``; in float64 ``csrc/backward_update_f64.cu``)
+replaces ``_backward_kernel`` there; it computes the XLA math of
+``_backward_step_core`` (``engines/lsmc.py``) in the operands' dtype with
 exact linear interpolation, from a per-step table
 
     table[d, g, :B]   = M_d @ coeffs'        (interpolation folded through the fit)
@@ -25,7 +26,7 @@ import torch
 from . import count_launch
 from .regression import BasisSpec, cholesky_solve_or_zero, design_columns, spot_from_factors
 
-_GRIDS = {}  # (device, S, D, B) -> the kernel's persistent grid (blocks)
+_GRIDS = {}  # (device, dtype, S, D, B) -> the kernel's persistent grid (blocks)
 
 
 def _standardized_rows(spec: BasisSpec, factors, coef, musd) -> torch.Tensor:
@@ -71,14 +72,17 @@ def backward_update_reference(
     return v_out, graw, praw
 
 
-def _persistent_grid(lib, device, S: int, D: int, B: int) -> int:
-    """Blocks (= partials) of the kernel's persistent grid for these shapes."""
+def _persistent_grid(lib, device, S: int, D: int, B: int, dtype=torch.float32) -> int:
+    """Blocks (= partials) of the kernel's persistent grid for these shapes
+    (of its float32 or its float64 instantiation)."""
     from .csrc import check_launch
 
-    key = (device.index, S, D, B)
+    key = (device.index, dtype, S, D, B)
     if key not in _GRIDS:
+        blocks = lib.backward_update_blocks if dtype == torch.float32 else \
+            lib.backward_update_f64_blocks
         with torch.cuda.device(device):
-            n = lib.backward_update_blocks(S, D, B)
+            n = blocks(S, D, B)
         if n <= 0:
             check_launch("backward_update", -n)
         _GRIDS[key] = n
@@ -87,27 +91,32 @@ def _persistent_grid(lib, device, S: int, D: int, B: int) -> int:
 
 def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
                           scal, spec: BasisSpec):
-    """Launch ``backward_update_kernel`` (CUDA tensors only)."""
-    from .csrc import basis_arrays, check_launch, check_operand, kernels
+    """Launch ``backward_update_kernel`` (CUDA tensors only), its float32 or
+    its float64 instantiation by the dtype of ``v_next``."""
+    from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels
 
     F, S = factors.shape
     G = v_next.shape[0]
     D = table.shape[0]
     B = spec.num_basis
+    dtype = v_next.dtype
+    check_dtype("the backward_update kernel", dtype)
     for name, t, shape in (
         ("factors", factors, (F, S)), ("factors_prev", factors_prev, (F, S)),
         ("v_next", v_next, (G, S)), ("table", table, (D, G, B + 2)), ("vbar", vbar, (G,)),
         ("musd", musd, (2, B)), ("geom_w", geom_w, (D, G)), ("scal", scal, (2, 1 + F)),
     ):
-        check_operand(name, t, shape)
+        check_operand(name, t, shape, dtype)
     check_operand("geom_j", geom_j, (D, G), torch.int32)
     lib = kernels()
-    nblk = _persistent_grid(lib, v_next.device, S, D, B)
+    nblk = _persistent_grid(lib, v_next.device, S, D, B, dtype)
     v_out = torch.empty_like(v_next)
     # One [B+1, G + B+1] partial per block: praw's columns, then graw's.
-    partials = torch.empty((nblk, B + 1, G + B + 1), dtype=torch.float32, device=v_next.device)
+    partials = torch.empty((nblk, B + 1, G + B + 1), dtype=dtype, device=v_next.device)
     spot_pow, fac_pow = basis_arrays(spec)
-    err = lib.backward_update_launch(
+    launch = lib.backward_update_launch if dtype == torch.float32 else \
+        lib.backward_update_f64_launch
+    err = launch(
         factors.data_ptr(), factors_prev.data_ptr(), v_next.data_ptr(), v_out.data_ptr(),
         table.data_ptr(), vbar.data_ptr(), musd.data_ptr(), geom_j.data_ptr(),
         geom_w.data_ptr(), scal.data_ptr(), partials.data_ptr(),

@@ -24,8 +24,9 @@ from pathlib import Path
 from typing import Optional
 
 _SRC_DIR = Path(__file__).resolve().parent
-_SOURCES = ("backward_update.cu", "forward_sim.cu", "path_sim.cu")
-_HEADERS = ("storage_kernels.cuh",)
+_SOURCES = ("backward_update.cu", "forward_sim.cu", "path_sim.cu", "backward_update_f64.cu",
+            "forward_sim_f64.cu")
+_HEADERS = ("storage_kernels.cuh", "storage_kernels_f64.cuh")
 BUILD_DIR = _SRC_DIR.parent.parent / "_build"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-Xcompiler", "-fPIC",
@@ -124,18 +125,26 @@ def load(path: Path) -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.backward_update_launch.argtypes = [p] * 11 + [ll, i, i, i, i, p, p, i, p]
-    lib.backward_update_launch.restype = i
-    lib.backward_update_blocks.argtypes = [ll, i, i]
-    lib.backward_update_blocks.restype = i
-    lib.forward_sim_launch.argtypes = [p] * 8 + [ll] + [i] * 8 + [p, p, i, i, p]
-    lib.forward_sim_launch.restype = i
-    lib.forward_sim_blocks.argtypes = [ll] + [i] * 6 + [p, p]
-    lib.forward_sim_blocks.restype = i
-    lib.forward_sim_row_pitch.argtypes = [i]
-    lib.forward_sim_row_pitch.restype = i
-    lib.path_sim_launch.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
-    lib.path_sim_launch.restype = i
+    # Each kernel has a float32 and a float64 entry point of one signature.
+    for suffix in ("", "_f64"):
+        launch = getattr(lib, f"backward_update{suffix}_launch")
+        launch.argtypes = [p] * 11 + [ll, i, i, i, i, p, p, i, p]
+        launch.restype = i
+        blocks = getattr(lib, f"backward_update{suffix}_blocks")
+        blocks.argtypes = [ll, i, i]
+        blocks.restype = i
+        launch = getattr(lib, f"forward_sim{suffix}_launch")
+        launch.argtypes = [p] * 8 + [ll] + [i] * 8 + [p, p, i, i, p]
+        launch.restype = i
+        blocks = getattr(lib, f"forward_sim{suffix}_blocks")
+        blocks.argtypes = [ll] + [i] * 6 + [p, p]
+        blocks.restype = i
+        pitch = getattr(lib, f"forward_sim{suffix}_row_pitch")
+        pitch.argtypes = [i]
+        pitch.restype = i
+        launch = getattr(lib, f"path_sim{suffix}_launch")
+        launch.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
+        launch.restype = i
     lib.storage_kernels_error_string.argtypes = [i]
     lib.storage_kernels_error_string.restype = ctypes.c_char_p
 
@@ -147,6 +156,16 @@ def kernels() -> ctypes.CDLL:
         if _lib is None:
             _lib = load(build())
         return _lib
+
+
+def check_dtype(what: str, dtype) -> None:
+    """The kernels, and so the engines, run in float32 or float64 (each kernel
+    has an instantiation of both): any other dtype is refused by name
+    (``ValueError``)."""
+    import torch
+
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what} runs in torch.float32 or torch.float64, not {dtype}")
 
 
 def check_operand(name: str, t, shape, dtype=None) -> None:

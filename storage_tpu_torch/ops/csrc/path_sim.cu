@@ -38,6 +38,17 @@
 // the plain version's Python floats become float32. So the paths equal the
 // plain version's on the same card bit for bit.
 //
+// Float64 mode (path_sim_f64_launch): the same hash and keys, but a draw
+// takes both words of the hash as one 64-bit word o1 << 32 | o2 (not
+// o1 ^ o2), keeps its top 52 bits as the mantissa of u, and maps u through
+// XLA's float64 erf_inv (Giles' three-range expansion in w = -log1p(-u^2))
+// and XLA's log1p (the Cephes rational approximation below sqrt(2) - 1,
+// log(1 + x) above it), as jax.random.normal(key, shape, float64) draws.
+// Every step is rounded on its own (__dmul_rn / __dadd_rn / __ddiv_rn),
+// log and the IEEE square root are the functions torch's CUDA ops call,
+// so the float64 paths equal the plain version's float64 paths bit for bit
+// as well. The state is carried and written in float64.
+//
 // What bounds it on the H100. The function's only necessary traffic is its
 // output, written once: 4 B x n x F x S (4.09 GB at 341 x 3 x 1M: 1.22 ms
 // at 3.35 TB/s). Per drawn element the hash is 72 integer operations (20
@@ -66,9 +77,10 @@ constexpr int kSimThreads = 256;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t v, int r) { return __funnelshift_l(v, v, r); }
 
-// o1 ^ o2 of threefry2x32 (20 rounds) of the counter pair (0, counter)
-// under the key schedule ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA).
-__device__ __forceinline__ uint32_t threefry_bits(const uint32_t (&ks)[3], uint32_t counter) {
+// The output words (o1, o2) of threefry2x32 (20 rounds) of the counter pair
+// (0, counter) under the key schedule ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA).
+__device__ __forceinline__ void threefry_words(const uint32_t (&ks)[3], uint32_t counter,
+                                               uint32_t& o1, uint32_t& o2) {
   uint32_t x0 = ks[0];
   uint32_t x1 = counter + ks[1];
 #define STORAGE_TF_ROUND(r) \
@@ -88,7 +100,15 @@ __device__ __forceinline__ uint32_t threefry_bits(const uint32_t (&ks)[3], uint3
   STORAGE_TF_GROUP(13, 15, 26, 6, 4)
 #undef STORAGE_TF_GROUP
 #undef STORAGE_TF_ROUND
-  return x0 ^ x1;
+  o1 = x0;
+  o2 = x1;
+}
+
+// o1 ^ o2: the 32-bit random word of a float32 draw.
+__device__ __forceinline__ uint32_t threefry_bits(const uint32_t (&ks)[3], uint32_t counter) {
+  uint32_t o1, o2;
+  threefry_words(ks, counter, o1, o2);
+  return o1 ^ o2;
 }
 
 // XLA's float32 erf_inv (Giles), each step rounded like the torch version.
@@ -119,14 +139,114 @@ __device__ __forceinline__ float normal_from_bits(uint32_t bits) {
   return __fmul_rn(erf_inv_rn(u), 0x1.6a09e6p+0f);  // float32(sqrt(2))
 }
 
+// XLA's float64 log1p and erf_inv, each step rounded like the torch version
+// (models/simulation.py::_xla_log1p, _erf_inv_f64). Coefficients highest
+// power first.
+__constant__ double kLog1pP[7] = {
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+    2.9911919328553073277375e1,  6.0949667980987787057556e1,  5.7112963590585538103336e1,
+    2.0039553499201281259648e1};
+__constant__ double kLog1pQ[7] = {
+    1.0,                         1.5062909083469192043167e1,  8.3047565967967209469434e1,
+    2.2176239823732856465394e2,  3.0909872225312059774938e2,  2.1642788614495947685003e2,
+    6.0118660497603843919306e1};
+__constant__ double kErfInvLt6[23] = {
+    -3.6444120640178196996e-21, -1.685059138182016589e-19,  1.2858480715256400167e-18,
+    1.115787767802518096e-17,   -1.333171662854620906e-16,  2.0972767875968561637e-17,
+    6.6376381343583238325e-15,  -4.0545662729752068639e-14, -8.1519341976054721522e-14,
+    2.6335093153082322977e-12,  -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+    1.051212273321532285e-09,   -4.1126339803469836976e-09, -2.9070369957882005086e-08,
+    4.2347877827932403518e-07,  -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+    0.0001867342080340571352,   -0.00074070253416626697512, -0.0060336708714301490533,
+    0.24015818242558961693,     1.6536545626831027356};
+__constant__ double kErfInvLt16[19] = {
+    2.2137376921775787049e-09,  9.0756561938885390979e-08,  -2.7517406297064545428e-07,
+    1.8239629214389227755e-08,  1.5027403968909827627e-06,  -4.013867526981545969e-06,
+    2.9234449089955446044e-06,  1.2475304481671778723e-05,  -4.7318229009055733981e-05,
+    6.8284851459573175448e-05,  2.4031110387097893999e-05,  -0.0003550375203628474796,
+    0.00095328937973738049703,  -0.0016882755560235047313,  0.0024914420961078508066,
+    -0.0037512085075692412107,  0.005370914553590063617,    1.0052589676941592334,
+    3.0838856104922207635};
+__constant__ double kErfInvGe16[17] = {
+    -2.7109920616438573243e-11, -2.5556418169965252055e-10, 1.5076572693500548083e-09,
+    -3.7894654401267369937e-09, 7.6157012080783393804e-09,  -1.4960026627149240478e-08,
+    2.9147953450901080826e-08,  -6.7711997758452339498e-08, 2.2900482228026654717e-07,
+    -9.9298272942317002539e-07, 4.5260625972231537039e-06,  -1.9681778105531670567e-05,
+    7.5995277030017761139e-05,  -0.00021503011930044477347, -0.00013871931833623122026,
+    1.0103004648645343977,      4.8499064014085844221};
+
+__device__ __forceinline__ double xla_log1p(double x) {
+  double p = 0.0, q = 0.0;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    p = __dadd_rn(__dmul_rn(p, x), kLog1pP[i]);
+    q = __dadd_rn(__dmul_rn(q, x), kLog1pQ[i]);
+  }
+  const double x2 = __dmul_rn(x, x);
+  const double small =
+      __dadd_rn(x, __dadd_rn(__dmul_rn(-0.5, x2), __dmul_rn(__dmul_rn(x, x2), __ddiv_rn(p, q))));
+  return fabs(x) < 0.41421356237309504880 ? small : log(__dadd_rn(x, 1.0));
+}
+
+__device__ __forceinline__ double erf_inv64_rn(double x) {
+  double w = -xla_log1p(__dmul_rn(-x, x));
+  const bool lt6 = w < 6.25;
+  const bool lt16 = w < 16.0;
+  w = lt6 ? __dsub_rn(w, 3.125) : __dsub_rn(__dsqrt_rn(w), lt16 ? 3.25 : 5.0);
+  double p = lt6 ? kErfInvLt6[0] : lt16 ? kErfInvLt16[0] : kErfInvGe16[0];
+#pragma unroll
+  for (int i = 1; i < 23; ++i) {
+    double c = kErfInvLt6[i];
+    if (i < 19) c = lt6 ? c : kErfInvLt16[i];
+    if (i < 17) c = lt16 ? c : kErfInvGe16[i];
+    const double step = __dadd_rn(c, __dmul_rn(p, w));
+    // The two outer ranges' polynomials end after 17 and 19 terms.
+    p = i < 17 ? step : i < 19 ? (lt16 ? step : p) : (lt6 ? step : p);
+  }
+  return fabs(x) == 1.0 ? __dmul_rn(x, __longlong_as_double(0x7ff0000000000000ll))
+                        : __dmul_rn(p, x);
+}
+
+// jax.random.normal's float64 value for the 64-bit random word o1 << 32 | o2.
+__device__ __forceinline__ double normal_from_words(uint32_t o1, uint32_t o2) {
+  const double lo = -0x1.fffffffffffffp-1;  // nextafter(-1, 0)
+  const uint64_t mant = ((uint64_t)o1 << 20) | (o2 >> 12);
+  const double unit = __dsub_rn(__longlong_as_double(mant | 0x3FF0000000000000ull), 1.0);
+  const double u = fmax(lo, __dadd_rn(__dmul_rn(unit, __dsub_rn(1.0, lo)), lo));
+  return __dmul_rn(erf_inv64_rn(u), 0x1.6a09e667f3bcdp+0);  // sqrt(2)
+}
+
+// One normal of the working type T for the counter of a draw.
+template <typename T>
+__device__ __forceinline__ T normal_draw(const uint32_t (&ks)[3], uint32_t counter);
+
+template <>
+__device__ __forceinline__ float normal_draw<float>(const uint32_t (&ks)[3], uint32_t counter) {
+  return normal_from_bits(threefry_bits(ks, counter));
+}
+
+template <>
+__device__ __forceinline__ double normal_draw<double>(const uint32_t (&ks)[3], uint32_t counter) {
+  uint32_t o1, o2;
+  threefry_words(ks, counter, o1, o2);
+  return normal_from_words(o1, o2);
+}
+
+// Products and sums of the OU update, rounded on their own in either type.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
 // 0 - y: the antithetic partner's state. The plain version computes the
 // partner from -z on its own, so an exactly zero state (every sim's at step
 // 0) is +0 there for both sims of a pair; -y would write -0.
 __device__ __forceinline__ float mirrored(float y) { return __fsub_rn(0.0f, y); }
+__device__ __forceinline__ double mirrored(double y) { return __dsub_rn(0.0, y); }
 
 // One state [F, S] written at dst: sim s and, where it has one, its partner.
-template <int kF>
-__device__ __forceinline__ void store_state(float* __restrict__ dst, const float (&y)[kF],
+template <typename T, int kF>
+__device__ __forceinline__ void store_state(T* __restrict__ dst, const T (&y)[kF],
                                             long long num_sims, uint32_t s, uint32_t draw_sims,
                                             bool mirror) {
 #pragma unroll
@@ -143,21 +263,21 @@ __device__ __forceinline__ void store_state(float* __restrict__ dst, const float
 // (step0 a multiple of kDrawBlock), which picks the block key and the
 // coefficient row; y0 (null: zeros) is the state entering step0. Only
 // y0[f, s] of the drawn sims is read: the partner's state is its negative.
-template <int kF, bool kCheckpoints>
+template <typename T, int kF, bool kCheckpoints>
 __global__ void __launch_bounds__(kSimThreads)
     path_sim_kernel(const uint32_t* __restrict__ keys,  // [ceil(N / 16), 2] block keys, whole horizon
-                    const float* __restrict__ coef,     // [N, F + F F] decay, then chol row-major
-                    const float* __restrict__ y0,       // [F, S] or null
-                    float* __restrict__ out, long long num_sims, uint32_t draw_sims, int step0,
+                    const T* __restrict__ coef,         // [N, F + F F] decay, then chol row-major
+                    const T* __restrict__ y0,           // [F, S] or null
+                    T* __restrict__ out, long long num_sims, uint32_t draw_sims, int step0,
                     int num_steps, int every) {
   const uint32_t s = blockIdx.x * (uint32_t)kSimThreads + threadIdx.x;
   if (s >= draw_sims) return;
   // The antithetic partner s + S' (draw_sims < num_sims only in that mode).
   const bool mirror = (long long)s + draw_sims < num_sims;
   constexpr int kRow = kF + kF * kF;
-  float y[kF];
+  T y[kF];
 #pragma unroll
-  for (int f = 0; f < kF; ++f) y[f] = y0 != nullptr ? y0[(size_t)f * num_sims + s] : 0.0f;
+  for (int f = 0; f < kF; ++f) y[f] = y0 != nullptr ? y0[(size_t)f * num_sims + s] : T(0);
   uint32_t ks[3] = {0u, 0u, 0u};
   // Checkpoint mode stops at the last checkpoint (a multiple of `every`,
   // written after the loop): the steps after it enter no state that is kept.
@@ -166,8 +286,8 @@ __global__ void __launch_bounds__(kSimThreads)
   for (int i = 0; i < last; ++i) {
     if (kCheckpoints) {
       if (until_ckpt == 0) {
-        store_state<kF>(out + (size_t)(i / every) * kF * num_sims, y, num_sims, s, draw_sims,
-                        mirror);
+        store_state<T, kF>(out + (size_t)(i / every) * kF * num_sims, y, num_sims, s,
+                           draw_sims, mirror);
         until_ckpt = every;
       }
       --until_ckpt;
@@ -179,45 +299,68 @@ __global__ void __launch_bounds__(kSimThreads)
       ks[1] = __ldg(keys + 2 * (k / kDrawBlock) + 1);
       ks[2] = ks[0] ^ ks[1] ^ 0x1BD11BDAu;
     }
-    float z[kF];
+    T z[kF];
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
-      z[f] = normal_from_bits(threefry_bits(ks, (uint32_t)(c * kF + f) * draw_sims + s));
+      z[f] = normal_draw<T>(ks, (uint32_t)(c * kF + f) * draw_sims + s);
     }
-    const float* row = coef + (size_t)k * kRow;
+    const T* row = coef + (size_t)k * kRow;
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
-      float inc = __fmul_rn(__ldg(row + kF + f * kF), z[0]);
+      T inc = mul_rn(__ldg(row + kF + f * kF), z[0]);
 #pragma unroll
       for (int g = 1; g < kF; ++g) {
-        inc = __fadd_rn(inc, __fmul_rn(__ldg(row + kF + f * kF + g), z[g]));
+        inc = add_rn(inc, mul_rn(__ldg(row + kF + f * kF + g), z[g]));
       }
-      y[f] = __fadd_rn(__fmul_rn(__ldg(row + f), y[f]), inc);
+      y[f] = add_rn(mul_rn(__ldg(row + f), y[f]), inc);
       if (!kCheckpoints) {
-        float* dst = out + ((size_t)i * kF + f) * num_sims;
+        T* dst = out + ((size_t)i * kF + f) * num_sims;
         dst[s] = y[f];
         if (mirror) dst[(size_t)s + draw_sims] = mirrored(y[f]);
       }
     }
   }
   if (kCheckpoints) {
-    store_state<kF>(out + (size_t)(last / every) * kF * num_sims, y, num_sims, s, draw_sims,
-                    mirror);
+    store_state<T, kF>(out + (size_t)(last / every) * kF * num_sims, y, num_sims, s, draw_sims,
+                       mirror);
   }
 }
 
-template <int kF>
+template <typename T, int kF>
 static void launch_path_sim(bool checkpoints, unsigned blocks, cudaStream_t st,
-                            const uint32_t* keys, const float* coef, const float* y0, float* out,
+                            const uint32_t* keys, const T* coef, const T* y0, T* out,
                             long long num_sims, uint32_t draw_sims, int step0, int num_steps,
                             int every) {
   if (checkpoints) {
-    path_sim_kernel<kF, true><<<blocks, kSimThreads, 0, st>>>(keys, coef, y0, out, num_sims,
-                                                              draw_sims, step0, num_steps, every);
+    path_sim_kernel<T, kF, true><<<blocks, kSimThreads, 0, st>>>(
+        keys, coef, y0, out, num_sims, draw_sims, step0, num_steps, every);
   } else {
-    path_sim_kernel<kF, false><<<blocks, kSimThreads, 0, st>>>(keys, coef, y0, out, num_sims,
-                                                               draw_sims, step0, num_steps, every);
+    path_sim_kernel<T, kF, false><<<blocks, kSimThreads, 0, st>>>(
+        keys, coef, y0, out, num_sims, draw_sims, step0, num_steps, every);
   }
+}
+
+template <typename T>
+static int path_sim_launch_typed(const uint32_t* keys, const T* coef, const T* y0, T* out,
+                                 long long num_sims, long long draw_sims, int step0,
+                                 int num_steps, int num_factors, int every, void* stream) {
+  if (num_factors < 1 || num_factors > kMaxFactors || num_steps < 1 || draw_sims < 1 ||
+      draw_sims > num_sims || num_sims > 2 * draw_sims || step0 < 0 ||
+      step0 % kDrawBlock != 0 || every < 0 || every % kDrawBlock != 0 ||
+      (long long)kDrawBlock * num_factors * draw_sims >= (1LL << 32)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned blocks = (unsigned)((draw_sims + kSimThreads - 1) / kSimThreads);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t ds = (uint32_t)draw_sims;
+  const bool ck = every > 0;
+  switch (num_factors) {
+    case 1: launch_path_sim<T, 1>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+    case 2: launch_path_sim<T, 2>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+    case 3: launch_path_sim<T, 3>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+    default: launch_path_sim<T, 4>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace storage_kernels
@@ -234,21 +377,15 @@ using namespace storage_kernels;
 extern "C" int path_sim_launch(const uint32_t* keys, const float* coef, const float* y0,
                                float* out, long long num_sims, long long draw_sims, int step0,
                                int num_steps, int num_factors, int every, void* stream) {
-  if (num_factors < 1 || num_factors > kMaxFactors || num_steps < 1 || draw_sims < 1 ||
-      draw_sims > num_sims || num_sims > 2 * draw_sims || step0 < 0 ||
-      step0 % kDrawBlock != 0 || every < 0 || every % kDrawBlock != 0 ||
-      (long long)kDrawBlock * num_factors * draw_sims >= (1LL << 32)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const unsigned blocks = (unsigned)((draw_sims + kSimThreads - 1) / kSimThreads);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t ds = (uint32_t)draw_sims;
-  const bool ck = every > 0;
-  switch (num_factors) {
-    case 1: launch_path_sim<1>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
-    case 2: launch_path_sim<2>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
-    case 3: launch_path_sim<3>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
-    default: launch_path_sim<4>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
-  }
-  return (int)cudaGetLastError();
+  return path_sim_launch_typed<float>(keys, coef, y0, out, num_sims, draw_sims, step0, num_steps,
+                                      num_factors, every, stream);
+}
+
+// The same in float64: coef, y0 and out are double.
+extern "C" int path_sim_f64_launch(const uint32_t* keys, const double* coef, const double* y0,
+                                   double* out, long long num_sims, long long draw_sims,
+                                   int step0, int num_steps, int num_factors, int every,
+                                   void* stream) {
+  return path_sim_launch_typed<double>(keys, coef, y0, out, num_sims, draw_sims, step0,
+                                       num_steps, num_factors, every, stream);
 }

@@ -2,9 +2,10 @@
 PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas_forward.py``.  The kernel
-(``csrc/forward_sim.cu``) replaces ``_forward_kernel`` there and computes
-the XLA math of ``_forward_step_core`` (``engines/lsmc.py``) with the
-regression continuation, in float32 with exact two-point interpolation,
+(``csrc/forward_sim.cu``; in float64 ``csrc/forward_sim_f64.cu``) replaces
+``_forward_kernel`` there and computes the XLA math of ``_forward_step_core``
+(``engines/lsmc.py``) with the regression continuation, in the operands'
+dtype with exact two-point interpolation,
 for any ``extra_decisions`` and ratchet interpolation (LINEAR, STEP, POLY).
 Outputs are the per-step sums the engine needs for means, deltas and
 trigger prices, plus each sim's final inventory and PV; given a ``panels``
@@ -34,10 +35,11 @@ NUM_FIXED_SCALARS = 11
 def pack_scalars(space_lo, space_hi, loss, inject_cost, withdraw_cost, cons_inject,
                  cons_withdraw, inv_cost_rate, df_settle, df_cost, sim_drift,
                  sim_vols) -> torch.Tensor:
-    """Pack per-step scalars into the kernel's ``[n, 11 + F]`` layout."""
+    """Pack per-step scalars into the kernel's ``[n, 11 + F]`` layout, in the
+    dtype of ``space_lo`` (the run's)."""
     cols = [space_lo, space_hi, loss, inject_cost, withdraw_cost, cons_inject,
             cons_withdraw, inv_cost_rate, df_settle, df_cost, sim_drift]
-    return torch.cat([torch.stack(cols, dim=1), sim_vols], dim=1).float().contiguous()
+    return torch.cat([torch.stack(cols, dim=1), sim_vols], dim=1).to(space_lo.dtype).contiguous()
 
 
 def forward_sim_reference(
@@ -108,25 +110,27 @@ def forward_sim_reference(
 TILE_SIMS = 256  # sims of one tile of the kernel's persistent grid (its ``kTile``)
 
 
-def grid_blocks(lib, device, spec: BasisSpec, *shape) -> int:
+def grid_blocks(lib, device, spec: BasisSpec, *shape, dtype=torch.float32) -> int:
     """Blocks (= partials) of the kernel's persistent grid for ``shape`` (the
-    integer arguments of ``forward_sim_blocks``) and the basis ``spec``: an
-    occupancy query, asked on every launch."""
+    integer arguments of ``forward_sim_blocks``), the basis ``spec`` and the
+    instantiation of ``dtype``: an occupancy query, asked on every launch."""
     from .csrc import basis_arrays, check_launch
 
+    blocks = lib.forward_sim_blocks if dtype == torch.float32 else lib.forward_sim_f64_blocks
     with torch.cuda.device(device):
-        n = lib.forward_sim_blocks(*shape, *basis_arrays(spec))
+        n = blocks(*shape, *basis_arrays(spec))
     if n <= 0:
         check_launch("forward_sim", -n)
     return n
 
 
 def pack_records(tables, mus, sds, pillars, scalars, pitch: int) -> torch.Tensor:
-    """The kernel's per-step records ``[n, RL]``: the table ``[G, B+1]`` with
-    rows zero-padded to ``pitch`` floats (whole float4s; the kernel's
-    ``forward_sim_row_pitch`` says how many for a basis), then the
+    """The kernel's per-step records ``[n, RL]`` in the tables' dtype: the
+    table ``[G, B+1]`` with rows zero-padded to ``pitch`` elements (float32:
+    whole float4s; float64: B+1 doubles; the kernel's ``forward_sim_row_pitch``
+    or ``forward_sim_f64_row_pitch`` says how many for a basis), then the
     ``(mu_b, sd_b)`` pairs, the pillars and the scalars, zero-padded to a
-    multiple of 4 floats (the launcher checks RL against its own count)."""
+    multiple of 4 elements (the launcher checks RL against its own count)."""
     n, B1, G = tables.shape
     table_rows = torch.nn.functional.pad(tables.transpose(1, 2), (0, pitch - B1))  # [n, G, pitch]
     musd = torch.stack([mus, sds], dim=2)  # [n, B, 2]
@@ -138,13 +142,17 @@ def pack_records(tables, mus, sds, pillars, scalars, pitch: int) -> torch.Tensor
 def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: BasisSpec,
                       interp_kind: int, num_grid: int, extra_decisions: int = 0,
                       panels: Optional[torch.Tensor] = None):
-    """Launch ``forward_sim_kernel`` (CUDA tensors only)."""
-    from .csrc import basis_arrays, check_launch, check_operand, kernels
+    """Launch ``forward_sim_kernel`` (CUDA tensors only), its float32 or its
+    float64 instantiation by the dtype of ``factors``."""
+    from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels
 
     n, F, S = factors.shape
     B = spec.num_basis
     G = num_grid
     P, C = pillars.shape[1:]
+    dtype = factors.dtype
+    check_dtype("the forward_sim kernel", dtype)
+    f64 = dtype == torch.float64
     operands = [
         ("factors", factors, (n, F, S)), ("inv0", inv0, (S,)), ("tables", tables, (n, B + 1, G)),
         ("mus", mus, (n, B)), ("sds", sds, (n, B)), ("pillars", pillars, (n, P, C)),
@@ -153,19 +161,21 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
     if panels is not None:
         operands.append(("panels", panels, (n, 6, S)))
     for name, t, shape in operands:
-        check_operand(name, t, shape)
+        check_operand(name, t, shape, dtype)
     lib = kernels()
     dev = factors.device
-    weights = torch.tensor(decision_weights(extra_decisions), dtype=torch.float32, device=dev)
+    weights = torch.tensor(decision_weights(extra_decisions), dtype=dtype, device=dev)
     D = weights.shape[1]
-    records = pack_records(tables, mus, sds, pillars, scalars, lib.forward_sim_row_pitch(B))
-    nblk = grid_blocks(lib, dev, spec, S, G, B, F, P, C, D)
+    pitch = lib.forward_sim_f64_row_pitch(B) if f64 else lib.forward_sim_row_pitch(B)
+    records = pack_records(tables, mus, sds, pillars, scalars, pitch)
+    nblk = grid_blocks(lib, dev, spec, S, G, B, F, P, C, D, dtype=dtype)
     # One [n, 7 + B+1] partial per block: the 7 sums' columns, then the design row's.
-    partials = torch.empty((nblk, n, NUM_SUMS + B + 1), dtype=torch.float32, device=dev)
-    inv_out = torch.empty((S,), dtype=torch.float32, device=dev)
-    pv_out = torch.empty((S,), dtype=torch.float32, device=dev)
+    partials = torch.empty((nblk, n, NUM_SUMS + B + 1), dtype=dtype, device=dev)
+    inv_out = torch.empty((S,), dtype=dtype, device=dev)
+    pv_out = torch.empty((S,), dtype=dtype, device=dev)
     spot_pow, fac_pow = basis_arrays(spec)
-    err = lib.forward_sim_launch(
+    launch = lib.forward_sim_f64_launch if f64 else lib.forward_sim_launch
+    err = launch(
         factors.data_ptr(), inv0.data_ptr(), records.data_ptr(), weights.data_ptr(),
         partials.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
         None if panels is None else panels.data_ptr(),

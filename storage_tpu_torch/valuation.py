@@ -6,13 +6,15 @@ intrinsic calculation first, then the LSMC engine on simulated paths, and
 returns NPV, per-period deltas, the expected storage profile, trigger prices,
 trigger volume/price profiles and (``return_sim_panels``, the default) the
 per-sim panels.  The device work runs on ``device`` (default ``"cuda"``):
-the LSMC and path kernels launch there.  ``on_progress_update``/``cancelled``
+the LSMC and path kernels launch there, in ``dtype`` (float32 or float64:
+each kernel has an instantiation of both).  ``on_progress_update``/``cancelled``
 run the engine span by span with the hooks between spans.  A path set larger
 than the budget of ``STORAGE_TPU_MAX_PATH_BYTES`` (default 6e9) is streamed:
 regenerated span by span from checkpointed factor states, never held whole.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence, Union
@@ -35,6 +37,7 @@ from .models.multi_factor import (
 from .models.simulation import (
     StreamingFactorSource, fold_in, prng_key, simulate_factor_paths, spots_from_factor_paths,
 )
+from .ops.csrc import check_dtype
 from .ops.regression import basis_spec
 from .storage import CmdtyStorage
 from .types import TriggerPricePoint, TriggerPriceProfile
@@ -190,12 +193,12 @@ def _stream_span_length(max_path_bytes: float, per_step_bytes: int) -> int:
 
 
 def _check_slice_options(dtype, mesh) -> None:
-    """Options of the JAX API that this port does not run yet raise, naming
-    the ROADMAP item that ports them."""
+    """``mesh``, an option of the JAX API that this port does not run yet,
+    raises, naming the ROADMAP item that ports it; a dtype other than
+    float32 or float64 is refused by name."""
     if mesh is not None:
         raise not_ported("mesh (multi-device paths)", "Queue 1 item 10")
-    if dtype != torch.float32:
-        raise not_ported(f"dtype={dtype} (only float32 runs)", "Queue 1 item 12")
+    check_dtype("the valuation", dtype)
 
 
 def _multi_factor_calc(
@@ -265,7 +268,7 @@ def _multi_factor_calc(
     # Intrinsic calc first (reference multi_factor.py:404-410), sharing the
     # compiled context with the LSMC run below.
     logger.info("Calculating intrinsic value.")
-    intrinsic = intrinsic_value_with_ctx(ctx, device=device)
+    intrinsic = intrinsic_value_with_ctx(ctx, device=device, dtype=dtype)
     logger.info("Calculation of intrinsic value complete.")
     first_sim_step = 1 if ctx.val_date_is_first_step else 0
     sim_periods = list(ctx.periods[first_sim_step:])
@@ -286,15 +289,16 @@ def _multi_factor_calc(
     # set can be freed before the valuation set allocates.  With panels, each
     # set's spot panel [m+1, S] is kept (on the device) as it is simulated.
     sims_cache = {}
-    sim_vols = torch.as_tensor(coeffs.vols, dtype=torch.float32).to(device)
-    sim_drift = torch.as_tensor(coeffs.log_fwd_drift, dtype=torch.float32).to(device)
+    sim_vols = torch.as_tensor(coeffs.vols, dtype=dtype).to(device)
+    sim_drift = torch.as_tensor(coeffs.log_fwd_drift, dtype=dtype).to(device)
 
     # Long-horizon x production-path configs (e.g. multi-year hourly) cannot
     # materialise the full [m+1, F, S] factor tensor on the device; past this
     # budget the engine streams paths span by span from checkpointed OU
     # states (the same draws bit for bit, see StreamingFactorSource).  Per-sim
     # panels are incompatible with streaming (they are O(n x S) themselves).
-    per_step_bytes = len(factors) * num_sims * 4  # float32
+    # The budget counts bytes of the run's dtype, as the JAX package does.
+    per_step_bytes = len(factors) * num_sims * torch.empty((), dtype=dtype).element_size()
     path_bytes = len(sim_periods) * per_step_bytes
     max_path_bytes = int(float(os.environ.get(MAX_PATH_BYTES_ENV, DEFAULT_MAX_PATH_BYTES)))
     streaming = path_bytes > max_path_bytes
@@ -317,12 +321,12 @@ def _multi_factor_calc(
             logger.info("Streaming %s path simulation (span=%d).", name, every)
             with stopwatches.time(phase):
                 return StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
-                                             device=device).prepare()
+                                             device=device, dtype=dtype).prepare()
     else:
         def simulate(key, phase, name):
             with stopwatches.time(phase):
                 f = simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
-                                          device=device)
+                                          device=device, dtype=dtype)
                 if stopwatches.sync:
                     stopwatches.synchronize()
             if return_sim_panels:
@@ -342,6 +346,7 @@ def _multi_factor_calc(
         cancelled=cancelled,
         collect_panels=return_sim_panels,
         stopwatches=stopwatches,
+        dtype=dtype,
     )
     logger.info("Calculation of LSMC value complete.")
 
@@ -391,7 +396,8 @@ def _assemble_results(
     # Per-sim panels [n+1, 6, S]: one contiguous host array per field.
     panel_frames = [_panel_frame(arrays.panels[:, f], periods) for f in range(6)]
 
-    # One device->host transfer for every small output.
+    # One device->host transfer for every small output, in their promoted
+    # dtype (float32 for a float32 run, float64 for a float64 one).
     small = [
         arrays.deltas, arrays.profile_means,
         arrays.trigger_has_inject, arrays.trigger_has_withdraw,
@@ -400,7 +406,8 @@ def _assemble_results(
         arrays.npv, arrays.backward_npv,
     ]
     shapes = [tuple(a.shape) for a in small]
-    flat = torch.cat([a.to(torch.float32).reshape(-1) for a in small]).cpu().numpy()
+    batch_dtype = functools.reduce(torch.promote_types, (a.dtype for a in small))
+    flat = torch.cat([a.to(batch_dtype).reshape(-1) for a in small]).cpu().numpy()
     flat = flat.astype(np.float64)
     fetched, off = [], 0
     for shp in shapes:

@@ -11,7 +11,8 @@ the CPU; the spec is the JAX package's exact XLA path,
   so coefficients, standardization, sim-means and the final value surface
   agree to the stated bounds.
 - One step in float32 on the same value surface and coefficients: the value
-  update agrees to 1e-4 of max|V| outside near-tie flips (<= 0.5%).
+  update agrees to 1e-4 of max|V| outside near-tie flips (<= 0.5%); in
+  float64 every entry to 1e-12 of max|V| (no decision flips).
 - The whole scan in float32: standardization and sim-means agree.  Raw
   float32 coefficients are not comparable across implementations (the
   standardized Gram's condition number is 1e5-3e6 here, so accumulation
@@ -141,16 +142,18 @@ def test_backward_scan_matches_jax_float64(case):
     _assert_surface_close(v, v_ref.T)
 
 
-def test_backward_step_matches_jax_float32(case):
-    """One period on the JAX scan's own surface and coefficients."""
+def _step_pair(case, jdtype, dtype):
+    """One period (``_backward_step_core`` against the plain version of K1)
+    on the JAX scan's own surface and coefficients, in the given dtypes:
+    ``(v_out [G, S], v_ref [G, S])``."""
     k = case.m // 2
-    v_next = np.asarray(case.jax_scan(jnp.float32, k + 1, case.m, np.zeros((SIMS, GRID)))[0])
-    _v, coeffs, mus, sds, vbars = case.jax_scan(jnp.float32, k, case.m, np.zeros((SIMS, GRID)))
-    jdev = jl.device_inputs(case.ctx, jnp.float32)
+    v_next = np.asarray(case.jax_scan(jdtype, k + 1, case.m, np.zeros((SIMS, GRID)))[0])
+    _v, coeffs, mus, sds, vbars = case.jax_scan(jdtype, k, case.m, np.zeros((SIMS, GRID)))
+    jdev = jl.device_inputs(case.ctx, jdtype)
     K = case.first + k
-    f_k = jnp.asarray(case.factors[k])
-    spot = jl.spot_from_factors(f_k, jnp.asarray(case.sim.vols[k], jnp.float32),
-                                jnp.asarray(case.sim.log_fwd_drift[k], jnp.float32))
+    f_k = jnp.asarray(case.factors[k], jdtype)
+    spot = jl.spot_from_factors(f_k, jnp.asarray(case.sim.vols[k], jdtype),
+                                jnp.asarray(case.sim.log_fwd_drift[k], jdtype))
     v_ref = np.asarray(jl._backward_step_core(
         jnp.asarray(v_next), spot, f_k, jdev.grids[K], jdev.space_lo[K + 1],
         jdev.space_hi[K + 1], jdev.pillars[K], jdev.loss[K], jdev.inject_cost[K],
@@ -159,21 +162,38 @@ def test_backward_step_matches_jax_float32(case):
         interp_kind=case.ctx.interp_kind, num_grid_points=GRID, extra_decisions=0,
         quantize_weights=False)[0])
 
-    dev = case.torch_dev(torch.float32)
+    dev = case.torch_dev(dtype)
     gj, gw, cost, price = (g[k] for g in tl._decision_geometry(
         dev, case.first, case.m, case.ctx.interp_kind, GRID, 0))
-    t = torch.tensor
-    table = tl.decision_table(t(np.asarray(coeffs[0])), t(np.asarray(vbars[0])), gj, gw, cost,
-                              price)
-    scal = torch.tensor(np.stack([
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype)
+
+    table = tl.decision_table(t(coeffs[0]), t(vbars[0]), gj, gw, cost, price)
+    scal = t(np.stack([
         np.concatenate([case.sim.log_fwd_drift[k:k + 1], case.sim.vols[k]]),
         np.concatenate([case.sim.log_fwd_drift[k - 1:k], case.sim.vols[k - 1]]),
-    ]), dtype=torch.float32)
-    musd = torch.stack([t(np.asarray(mus[0])), t(np.asarray(sds[0]))])
+    ]))
+    musd = torch.stack([t(mus[0]), t(sds[0])])
     v_out, _graw, _praw = backward_update_reference(
-        t(case.factors[k]), t(case.factors[k - 1]), t(v_next.T.copy()), table,
-        t(np.asarray(vbars[0])), musd, gj, gw, scal, BasisSpec(*case.spec))
-    _assert_surface_close(v_out.numpy(), v_ref.T)
+        t(case.factors[k]), t(case.factors[k - 1]), t(v_next.T.copy()), table, t(vbars[0]),
+        musd, gj, gw, scal, BasisSpec(*case.spec))
+    return v_out.numpy(), v_ref.T
+
+
+def test_backward_step_matches_jax_float32(case):
+    """One period on the JAX scan's own surface and coefficients."""
+    _assert_surface_close(*_step_pair(case, jnp.float32, torch.float32))
+
+
+def test_backward_step_matches_jax_float64(case):
+    """The same period in float64: every sim takes JAX's decision at every
+    grid point (no near-tie flips), and the values agree to 1e-12 of
+    max|V|."""
+    with jax.enable_x64(True):
+        v_out, v_ref = _step_pair(case, jnp.float64, torch.float64)
+    assert v_out.dtype == np.float64
+    np.testing.assert_allclose(v_out, v_ref, rtol=0, atol=1e-12 * np.abs(v_ref).max())
 
 
 def test_backward_scan_matches_jax_float32(case):

@@ -19,7 +19,10 @@ between a kernel and its plain version (FMA contraction), so near-tie
 decisions may flip; flips are counted and bounded like ``chip_smoke.py``
 bounds them (<= 1e-4 of the paths per decision; panels and final
 inventories within 1e-5 of each field's max outside flipped paths, a path
-counting as flipped where its PV or any of its volumes differ).
+counting as flipped where its PV or any of its volumes differ).  The
+float64 instantiations are held tighter: K3 bit for bit, K2 to 1e-12 with
+no flips (it rounds as torch does), K1 to 1e-12 outside at most 1e-6 of
+flipped V entries.
 """
 import numpy as np
 import pytest
@@ -392,3 +395,125 @@ def test_launch_refused_raises(cuda):
     args[5] = torch.ones(2, B, device=cuda)
     with pytest.raises(KernelLaunchError):
         backward.backward_update(*args, spec=spec)
+
+
+# --------------------------------------------------------------------------- #
+# The float64 instantiations (backward_update_f64.cu, forward_sim_f64.cu and  #
+# path_sim.cu's float64 mode) against their plain versions in float64.        #
+# --------------------------------------------------------------------------- #
+
+
+def _f64(args):
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+@pytest.mark.parametrize("spec,S,G,D,local", [
+    (SPEC_3F, 1000, 17, 3, False), (SPEC_SMALL, 4097, 40, 5, False),
+    (SPEC_3F, 2048, 700, 5, True), (SPEC_3F, 300_004, 100, 3, True), (SPEC_16, 3000, 60, 3, True),
+], ids=["B10-tail", "B3-D5", "G700-D5", "multi-pass", "B16"])
+def test_backward_update_f64_matches_plain(cuda, spec, S, G, D, local):
+    """K1's float64 kernel: V entries within 1e-12 of max|V| but for near-tie
+    flips of the fitted totals (an FMA chain against torch's matrix
+    product), at most 1e-6 of them; partials within 1e-12."""
+    args = _f64(_backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=local))
+    reset_launch_counts()
+    v_k, graw_k, praw_k = backward.backward_update(*args, spec=spec)
+    assert launch_counts()["backward_update"] == 1
+    assert v_k.dtype == graw_k.dtype == praw_k.dtype == torch.float64
+    v_r, graw_r, praw_r = backward.backward_update_reference(*args, spec=spec)
+    torch.cuda.synchronize()
+    flipped = (v_k - v_r).abs() > 1e-12 * v_r.abs().max()
+    assert flipped.double().mean().item() <= 1e-6
+    for a, b in ((graw_k, graw_r), (praw_k, praw_r)):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-12
+    again = backward.backward_update(*args, spec=spec)
+    for a, b in zip((v_k, graw_k, praw_k), again):
+        assert torch.equal(a, b)
+
+
+_F64_FORWARD_CASES = [
+    (SPEC_3F, 3001, 30, 4, 0, 0, True), (SPEC_3F, 3001, 30, 4, 1, 0, False),
+    (SPEC_3F, 3001, 30, 1, 0, 0, False), (SPEC_3F, 1000, 30, 4, 0, 2, True),
+    (SPEC_3F, 2048, 30, 4, INTERP_POLY, 1, True), (SPEC_3F, 515, 1, 4, 0, 0, True),
+    (SPEC_3F, 811_011, 5, 4, 0, 0, True), (SPEC_16, 2049, 12, 4, 0, 0, False),
+    (SPEC_CUBIC, 2049, 12, 4, 0, 0, False),
+]
+
+
+@pytest.mark.parametrize("spec,S,n,P,interp_kind,extra,panels", _F64_FORWARD_CASES,
+                         ids=["linear-panels", "step", "constant", "D7-panels", "poly-padded",
+                              "one-step", "tiles-per-block", "B16", "cubic"])
+def test_forward_sim_f64_matches_plain(cuda, spec, S, n, P, interp_kind, extra, panels):
+    """K2's float64 kernel rounds every step as the plain version's torch
+    ops do: the same decisions, so every per-sim value and panel entry
+    equals the plain version's (to 1e-12 of its field's max) and the sums
+    agree to 1e-12 (their order differs)."""
+    G = 23
+    args = _f64(_forward_inputs(spec, S, n, G, P, seed=S + n + extra, device=cuda))
+    if interp_kind == INTERP_POLY:
+        args[5] = _poly_pillars(n).double().to(cuda)
+    kw = dict(spec=spec, interp_kind=interp_kind, num_grid=G, extra_decisions=extra)
+    p_k = torch.full((n, 6, S), float("nan"), dtype=torch.float64, device=cuda) if panels else None
+    p_r = torch.empty_like(p_k) if panels else None
+    reset_launch_counts()
+    s_k, x_k, inv_k, pv_k = forward.forward_sim(*args, **kw, panels=p_k)
+    assert launch_counts()["forward_sim"] == 1
+    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **kw, panels=p_r)
+    torch.cuda.synchronize()
+    assert pv_k.dtype == s_k.dtype == torch.float64
+    pairs = [(inv_k, inv_r), (pv_k, pv_r), (s_k, s_r), (x_k, x_r)]
+    if panels:
+        assert torch.isfinite(p_k).all()
+        pairs += [(p_k[:, f], p_r[:, f]) for f in range(6)]
+    for a, b in pairs:
+        assert ((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item() <= 1e-12
+
+
+@pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
+@pytest.mark.parametrize("n", [5, 37])
+@pytest.mark.parametrize("num_factors", [1, 2, 3, 4])
+def test_path_sim_f64_equals_plain(cuda, num_factors, n, antithetic):
+    """The path kernel's float64 mode against its plain version, bit for bit
+    (the same hash, both words of it per draw, XLA's float64 erf_inv and
+    log1p, every step rounded as torch rounds it)."""
+    num_sims = 10_001
+    coeffs = _sim_coefficients(num_factors, n)
+    key = simulation.fold_in(simulation.prng_key(12), 1)
+    reset_launch_counts()
+    got = simulation.simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
+                                           device=cuda, dtype=torch.float64)
+    assert launch_counts()["path_sim"] == 1
+    ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, cuda,
+                                                     dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == (n, num_factors, num_sims)
+    assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
+
+
+@pytest.mark.parametrize("num_factors,n,num_sims,antithetic,every", [
+    (3, 103, 4_097, True, 32), (2, 33, 257, True, 16), (3, 300, 2_049, False, 512),
+], ids=["F3-antithetic-odd", "tail-of-1", "one-span"])
+def test_path_sim_f64_spans_equal_one_launch(cuda, num_factors, n, num_sims, antithetic, every):
+    coeffs = _sim_coefficients(num_factors, n)
+    key = simulation.fold_in(simulation.prng_key(12), 1)
+    mono = simulation.simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
+                                            device=cuda, dtype=torch.float64)
+    src = simulation.StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
+                                           device=cuda, dtype=torch.float64).prepare()
+    ckpts = simulation.factor_checkpoints_reference(coeffs, num_sims, key, antithetic,
+                                                    src.every, cuda, torch.float64)
+    assert torch.equal(src._checkpoints().view(torch.int64), ckpts.view(torch.int64))
+    stream = torch.cat([src.factors(a, b).clone() for a, b in src.spans()])
+    torch.cuda.synchronize()
+    assert torch.equal(stream.view(torch.int64), mono.view(torch.int64))
+
+
+def test_kernels_refuse_float16_on_the_card(cuda):
+    args = [a.half() if a.is_floating_point() else a
+            for a in _backward_inputs(SPEC_SMALL, 256, 8, 3, seed=1, device=cuda)]
+    with pytest.raises(ValueError, match="torch.float16"):
+        backward.backward_update(*args, spec=SPEC_SMALL)
+    out = torch.empty((5, 2, 64), dtype=torch.float16, device=cuda)
+    tables = simulation._path_kernel_tables(_sim_coefficients(2, 5), simulation.prng_key(1), cuda)
+    with pytest.raises(ValueError, match="torch.float16"):
+        simulation._launch_path_sim(tables, out, 64, False)

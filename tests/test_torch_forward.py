@@ -6,7 +6,8 @@ valuation paths: the port's forward program (plain version of the
 ``forward_sim`` kernel on the CPU, the current-period step, trigger prices,
 result assembly) against JAX ``forward_scan`` with ``collect_panels=False``.
 
-NPV agrees to 1e-5 relative.  A near-tie decision that rounds the other way
+NPV agrees to 1e-5 relative (in float64: every path's PV to 1e-12, no
+decision flips).  A near-tie decision that rounds the other way
 sends a path down another inventory path from that step on, so per-path PVs
 are compared outside such flipped paths, which are counted and bounded per
 decision (as ``chip_smoke.py`` bounds the kernel against its plain version).
@@ -41,8 +42,9 @@ SIMS, GRID = 2048, 40
 NPV_RTOL, PV_RTOL, MAX_FLIPS_PER_DECISION = 1e-5, 1e-4, 1e-4
 
 
-@pytest.fixture(scope="module")
-def results():
+def _programs(jdtype, dtype):
+    """Both packages' forward programs under the JAX package's exact policy,
+    in the given dtypes: ``(port arrays, JAX arrays, decision steps)``."""
     storage, fwd, ir, rule = build_case(jax_pkg, storage_end="2021-07-01")
     ctx = build_valuation_context(storage, "2021-04-25", 1500.0, fwd, ir, rule, GRID)
     vp = ctx.val_period
@@ -50,11 +52,11 @@ def results():
     sim = build_sim_coefficients(factors, corrs, vp, fwd, list(ctx.periods[1:]))
     spec = basis_spec(as_monomials(BASIS, THREE_FACTOR_SEASONAL_ALIASES), 3)
     key = jax.random.PRNGKey(12)
-    reg = simulate_factor_paths(sim, SIMS, None, key=key)
-    val = simulate_factor_paths(sim, SIMS, None, key=jax.random.fold_in(key, 1))
-    vols = jnp.asarray(sim.vols, jnp.float32)
-    drift = jnp.asarray(sim.log_fwd_drift, jnp.float32)
-    dev = jl.device_inputs(ctx, jnp.float32)
+    reg = simulate_factor_paths(sim, SIMS, None, False, jdtype, key=key)
+    val = simulate_factor_paths(sim, SIMS, None, False, jdtype, key=jax.random.fold_in(key, 1))
+    vols = jnp.asarray(sim.vols, jdtype)
+    drift = jnp.asarray(sim.log_fwd_drift, jdtype)
+    dev = jl.device_inputs(ctx, jdtype)
     statics = dict(spec=spec, interp_kind=ctx.interp_kind, num_grid_points=GRID,
                    extra_decisions=0, val_first=ctx.val_date_is_first_step, terminal_fn=None)
     bnpv, cont_mean0, coeffs, mus, sds, vbars = jl._backward_program_jit(
@@ -62,16 +64,28 @@ def results():
     ref = jl._forward_program_jit(val, vols, drift, cont_mean0, coeffs, mus, sds, vbars, dev,
                                   bnpv, discount_deltas=True, collect_panels=False, **statics)
 
-    tdev = tl.device_inputs(context_from_numpy(ctx), "cpu")
+    tdev = tl.device_inputs(context_from_numpy(ctx), "cpu", dtype)
     policy = lsmc_policy_from_numpy(dict(coeffs=coeffs, mus=mus, sds=sds, vbars=vbars,
                                          cont_mean0=cont_mean0, backward_npv=bnpv),
-                                    device="cpu")[:4]
+                                    device="cpu", dtype=dtype)[:4]
     got = tl._forward_program(
-        torch.from_numpy(np.array(val)), torch.tensor(sim.vols, dtype=torch.float32),
-        torch.tensor(sim.log_fwd_drift, dtype=torch.float32),
-        torch.from_numpy(np.array(cont_mean0)), *policy, tdev, torch.tensor(float(bnpv)),
-        BasisSpec(*spec), ctx.interp_kind, GRID, 0, ctx.val_date_is_first_step, None, True)
+        torch.from_numpy(np.array(val)), torch.tensor(sim.vols, dtype=dtype),
+        torch.tensor(sim.log_fwd_drift, dtype=dtype),
+        torch.from_numpy(np.array(cont_mean0)), *policy, tdev,
+        torch.tensor(float(bnpv), dtype=dtype), BasisSpec(*spec), ctx.interp_kind, GRID, 0,
+        ctx.val_date_is_first_step, None, True)
     return got, ref, val.shape[0] - 1
+
+
+@pytest.fixture(scope="module")
+def results():
+    return _programs(jnp.float32, torch.float32)
+
+
+@pytest.fixture(scope="module")
+def results64():
+    with jax.enable_x64(True):
+        return _programs(jnp.float64, torch.float64)
 
 
 def _np(x):
@@ -113,6 +127,23 @@ def test_triggers_match(results):
                                        err_msg=f"{side} {what}")
 
 
+def test_float64_program_takes_the_jax_decisions(results64):
+    """In float64 no decision flips: every path's PV, the NPV, the deltas and
+    the profile agree with the JAX package's to 1e-12 of their scale."""
+    got, ref, _m = results64
+    assert got.npv.dtype == torch.float64
+    assert float(got.npv) == pytest.approx(float(ref.npv), rel=1e-12)
+    for name in ("pv_by_sim", "deltas", "profile_means"):
+        a, b = _np(getattr(got, name)), _np(getattr(ref, name))
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12 * np.abs(b).max(), err_msg=name)
+    for side in ("inject", "withdraw"):
+        has = _np(getattr(ref, f"trigger_has_{side}")).astype(bool)
+        assert np.array_equal(_np(getattr(got, f"trigger_has_{side}")).astype(bool), has)
+        b = _np(getattr(ref, f"trigger_{side}_prices"))[has]
+        np.testing.assert_allclose(_np(getattr(got, f"trigger_{side}_prices"))[has], b,
+                                   rtol=1e-9, atol=1e-9 * np.abs(b).max())
+
+
 @pytest.mark.parametrize("B,F,P,C", [(3, 1, 1, 3), (10, 3, 4, 3), (11, 2, 4, 5), (12, 3, 2, 3),
                                      (16, 4, 4, 5)],
                          ids=["B3", "B10", "B11-poly", "B12", "B16-poly"])
@@ -138,3 +169,23 @@ def test_pack_records_layout(B, F, P, C):
         assert torch.equal(rec[:, off:off + part.shape[1]], part)
         off += part.shape[1]
     assert off == used and not rec[:, off:].any()
+
+
+@pytest.mark.parametrize("B", [3, 10, 16])
+def test_pack_records_layout_float64(B):
+    """The float64 forward kernel's records: table rows of B+1 doubles (its
+    ``forward_sim_f64_row_pitch``, no padding), then the (mu, sd) pairs,
+    pillars and scalars, zero-padded to a multiple of 4, all float64."""
+    n, G, P, C, F = 3, 7, 4, 3, 3
+    g = torch.Generator().manual_seed(B)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64)
+
+    tables, mus, sds, pillars, scalars = (r(n, B + 1, G), r(n, B), r(n, B), r(n, P, C),
+                                          r(n, 11 + F))
+    rec = pack_records(tables, mus, sds, pillars, scalars, B + 1)
+    used = G * (B + 1) + 2 * B + P * C + 11 + F
+    assert rec.dtype == torch.float64 and rec.shape == (n, -(-used // 4) * 4)
+    assert torch.equal(rec[:, :G * (B + 1)].reshape(n, G, B + 1), tables.transpose(1, 2))
+    assert torch.equal(rec[:, used - 11 - F:used], scalars) and not rec[:, used:].any()

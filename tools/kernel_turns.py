@@ -9,12 +9,16 @@ process, then trace one warm valuation.
     python3 tools/kernel_turns.py --hourly [--out chiprun_out/hourly_trace.json]
 
 DIR (default ``storage_tpu_torch/_build/parent``, which git ignores) holds an
-earlier commit's ``forward_sim.cu`` and ``storage_kernels.cuh``, written
-there with ``git show <commit>:storage_tpu_torch/ops/csrc/<name> > DIR/<name>``.
-It is built with ``csrc.compile_library`` and called through the C interface
-that kernel had before its redesign (one thread per sim, 256-sim blocks, one
-partial per block and step). K3's parent is the plain PyTorch path
-simulation, which is what the main path ran before the kernel existed.
+earlier commit's sources, written there with
+``git show <commit>:storage_tpu_torch/ops/csrc/<name> > DIR/<name>``:
+``forward_sim.cu`` and ``storage_kernels.cuh`` for K2, ``path_sim.cu`` and
+``storage_kernels.cuh`` for K3; either may be absent. The parent K2 is built
+with ``csrc.compile_library`` and called through the C interface that kernel
+had before its redesign (one thread per sim, 256-sim blocks, one partial per
+block and step). The parent K3 is called through the float32
+``path_sim_launch`` with an entering state, a first step and a checkpoint
+stride, which the current source keeps. The plain PyTorch path simulation,
+what the main path ran before K3 existed, is timed beside them.
 ``--variant NAME=DIR`` (repeatable) builds another ``forward_sim.cu`` with
 the current C interface from DIR (an edited copy of the current sources: one
 constant changed, such as ``kR`` and ``kFwdMinBlocks`` for another number of
@@ -27,7 +31,9 @@ sims per thread, or one part taken out) and times it beside the others.
    turn, then in reverse order; 5 launches each, CUDA events, wrappers
    included. Versions: parent, current, and the variants. Outputs against
    the current kernel's.
-4. K3      — plain version, kernel, kernel, plain version at ``[341, 3, 1M]``.
+4. K3      — at ``[341, 3, 1M]``: the plain version, the kernel and the parent
+   K3 in turn, then in reverse order; the parent's paths against the
+   kernel's, bit for bit.
 5. wall    — the headline valuation at 1M paths as it ran before (parent K2,
    plain path simulation) and now, in the same order; wall and phases.
 6. trace   — ``torch.profiler`` over one more (warm) valuation: the top
@@ -37,7 +43,10 @@ sims per thread, or one part taken out) and times it beside the others.
 
 ``--sass`` adds what the compiler made of the two kernels (``cuobjdump
 -sass`` of the current library): instructions in all, the loops (backward
-branches) with their sizes, and the commonest opcodes.
+branches) with their sizes, and the commonest opcodes. With a parent K3 it
+also compiles both ``path_sim.cu`` to cubins and compares their float32
+kernels instruction by instruction (raw dumps ``DIR/parent.sass`` and
+``DIR/current.sass``).
 
 ``--hourly`` does none of the above: it builds the library, runs the streamed
 hourly case of ``chip_smoke.value_hourly`` (17,520 steps x 250,000 antithetic
@@ -54,6 +63,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -80,6 +90,41 @@ def build_parent(parent: Path):
     lib.forward_sim_launch.argtypes = [p] * 13 + [ll, i, i, i, i, i, i, i, i, p, p, i, p]
     lib.forward_sim_launch.restype = i
     return lib
+
+
+def build_parent_path_sim(parent: Path):
+    """The earlier path kernel's float32 launcher from ``parent``; None if
+    absent."""
+    from storage_tpu_torch.ops import csrc
+
+    if not (parent / "path_sim.cu").exists():
+        return None
+    out = parent / "libparent_path_sim.so"
+    csrc.compile_library(parent, ("path_sim.cu",), out)
+    lib = ctypes.CDLL(str(out))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.path_sim_launch.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
+    lib.path_sim_launch.restype = i
+    return lib.path_sim_launch
+
+
+def parent_paths(launcher):
+    """One path set from the earlier path kernel, called like
+    ``_simulate_factor_paths_cuda`` (float32, one launch)."""
+    import torch
+    from storage_tpu_torch.models import simulation
+    from storage_tpu_torch.ops.csrc import check_launch
+
+    def run(coeffs, num_sims, key, antithetic, device):
+        tables = simulation._path_kernel_tables(coeffs, key, device)
+        n, F = coeffs.decay.shape
+        out = torch.empty((n, F, num_sims), device=device)
+        draw = (num_sims + 1) // 2 if antithetic else num_sims
+        check_launch("path_sim (parent)", launcher(
+            tables.keys.data_ptr(), tables.coef.data_ptr(), None, out.data_ptr(), num_sims,
+            draw, 0, n, F, 0, torch.cuda.current_stream(device).cuda_stream))
+        return out
+    return run
 
 
 def parent_forward(lib):
@@ -167,26 +212,32 @@ def turns(label, versions, reference, call, reps=REPS):
     return dict(order=order, ms=times, agreement=agreement)
 
 
-def k3_turns(captured):
+def k3_turns(captured, parent=None):
     import torch
     from storage_tpu_torch.models import simulation
 
     coeffs, num_sims, kw = captured["sim"][0]
-    versions = {
-        "plain": lambda: simulation.simulate_factor_paths_reference(
-            coeffs, num_sims, kw["key"], False, "cuda"),
-        "kernel": lambda: simulation._simulate_factor_paths_cuda(
-            coeffs, num_sims, kw["key"], False, "cuda"),
-    }
-    order = ["plain", "kernel", "kernel", "plain"]
+    versions = {"plain": simulation.simulate_factor_paths_reference,
+                "kernel": simulation._simulate_factor_paths_cuda}
+    if parent is not None:
+        versions["parent"] = parent_paths(parent)
+
+    def call(name):
+        return versions[name](coeffs, num_sims, kw["key"], False, "cuda")
+
+    out = dict()
+    if parent is not None:
+        out["paths_differ"] = chip_smoke._bits_differ(call("parent"), call("kernel"))
+        print(f"[K3 parent] {out['paths_differ']} path elements differ from the kernel's")
+    order = list(versions) + list(reversed(versions))
     times = {name: [] for name in versions}
     for name in order:
-        times[name].append(chip_smoke.cuda_ms(versions[name], 1 if name == "plain" else 10))
+        times[name].append(chip_smoke.cuda_ms(lambda: call(name), 1 if name == "plain" else 10))
     torch.cuda.empty_cache()
     shape = coeffs.decay.shape + (num_sims,)
     print(f"[turns K3 {shape}] " + "; ".join(
         f"{name}: {' / '.join(f'{t:.3f}' for t in ts)} ms" for name, ts in times.items()))
-    return dict(order=order, ms=times)
+    return dict(out, order=order, ms=times)
 
 
 def wall_turns(parent_fwd):
@@ -389,6 +440,51 @@ def sass_summary(fragment):
     return out
 
 
+_ADDRESS = re.compile(r"/\*[0-9a-f]{4,}\*/")
+
+
+def disassemble(src: Path, dump: Path) -> dict:
+    """{kernel: [instruction lines]} of the cubin of ``src``, a float32
+    kernel keyed by its name and template arguments without ``float, ``
+    (the kernel may be templated on its working type) and its parameter
+    list; the raw disassembly is written to ``dump``."""
+    import subprocess
+    from storage_tpu_torch.ops.csrc import NVCC_FLAGS, _nvcc
+
+    bindir = Path(_nvcc()).parent
+    cubin = dump.with_suffix(".cubin")
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-cubin", "-o", str(cubin), str(src)], check=True)
+    sass = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    dump.write_text(sass)
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :", 1)[1].strip()
+            demangled = subprocess.run([str(bindir / "cu++filt"), mangled], check=True,
+                                       capture_output=True, text=True).stdout.strip()
+            name = demangled.replace("float, ", "").split(">(")[0] + ">"
+            out[name] = []
+        elif name is not None and _ADDRESS.search(line):
+            # cuobjdump pads its columns to the file's longest instruction.
+            out[name].append(" ".join(_ADDRESS.sub("", line).split()))
+    return out
+
+
+def compare_path_sim_sass(parent: Path) -> list:
+    """The parent's path kernels against the current float32 ones,
+    instruction line by instruction line."""
+    before = disassemble(parent / "path_sim.cu", parent / "parent.sass")
+    after = disassemble(ROOT / "storage_tpu_torch/ops/csrc/path_sim.cu", parent / "current.sass")
+    rows = []
+    for name in sorted(before):
+        a, b = before[name], after.get(name, [])
+        differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+        rows.append(dict(kernel=name, instructions=[len(a), len(b)], differing=differ))
+        print(f"[sass parent K3] {name}: {len(a)} -> {len(b)} instruction lines, {differ} differ")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=ROOT / "storage_tpu_torch/_build/parent")
@@ -420,13 +516,15 @@ def main() -> int:
     t0 = time.perf_counter()
     csrc.build(True)
     csrc.kernels()
-    with ThreadPoolExecutor(1 + len(variant_dirs)) as pool:
+    with ThreadPoolExecutor(2 + len(variant_dirs)) as pool:
         par = pool.submit(build_parent, opts.parent)
+        par_k3 = pool.submit(build_parent_path_sim, opts.parent)
         var = {name: pool.submit(build_variant, Path(d)) for name, d in variant_dirs.items()}
-        parent = par.result()
+        parent, parent_k3 = par.result(), par_k3.result()
         variants = {name: f.result() for name, f in var.items()}
-    print(f"[build] {time.perf_counter() - t0:.2f} s; parent kernel "
-          f"{'built' if parent else 'absent'}; variants {list(variants)}")
+    print(f"[build] {time.perf_counter() - t0:.2f} s; parent K2 "
+          f"{'built' if parent else 'absent'}; parent K3 {'built' if parent_k3 else 'absent'}; "
+          f"variants {list(variants)}")
 
     versions = {}
     if parent is not None:
@@ -446,7 +544,7 @@ def main() -> int:
         result[f"K2_{label}"] = turns(f"K2 {label}", versions, reference,
                                       lambda fn, case_kw=case_kw: fn(*args, **case_kw))
     del full_panels, cases
-    result["K3"] = k3_turns(captured)
+    result["K3"] = k3_turns(captured, parent_k3)
     del captured, args
     torch.cuda.empty_cache()
     if parent is not None and not opts.no_wall:
@@ -455,11 +553,15 @@ def main() -> int:
         result["trace"] = trace()
     if opts.sass:
         result["sass"] = {**sass_summary("forward_sim_kernelILi3"),
-                          **sass_summary("path_sim_kernelILi3")}
+                          **sass_summary("path_sim_kernelIfLi3E")}
+        if parent_k3 is not None:
+            result["sass_parent_K3"] = compare_path_sim_sass(opts.parent)
     opts.out.parent.mkdir(parents=True, exist_ok=True)
     opts.out.write_text(json.dumps(result, indent=1))
     print(f"[card] {card}")
-    return 0
+    k3 = result["K3"].get("paths_differ", 0)
+    sass_differ = sum(r["differing"] for r in result.get("sass_parent_K3", []))
+    return 1 if k3 or sass_differ else 0
 
 
 if __name__ == "__main__":
