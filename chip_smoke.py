@@ -22,7 +22,8 @@ Phases, each printing its own line (every failure exits non-zero):
    ``torch.matmul`` of its ``[B+1, S] x [S, G]`` partial product timed as a
    yardstick of the reduction alone; then the same for K1 at D = 5
    (``extra_decisions=1`` geometry), K1 at G = 700, D = 5 on random inputs
-   (65,536 sims; a grid the PR-1 kernel refused), and K2's variants:
+   (65,536 sims; a grid the first K1 refused), in float32 and in float64,
+   and K2's variants:
    per-sim panels, D = 5, and POLY ratchets (cubics fitted through the
    recorded pillars).
    K3 — the path kernel against its plain version, bit for bit, at the main
@@ -199,9 +200,9 @@ F64_PV_RTOL, F64_NPV_RTOL = 1e-12, 1e-12
 F64_VS_F32_RTOL, F64_INTRINSIC_RTOL = 1e-2, 1e-5
 PORT_NPV_F64, PORT_NPV_F64_RTOL = 78_362.144839, 1e-6
 DEFAULT_PATH_BUDGET = 6e9  # the port's (and the JAX package's) default path budget
-F64_SOURCES = {"K1": "storage_tpu_torch/ops/csrc/backward_update_f64.cu",
-               "K2": "storage_tpu_torch/ops/csrc/forward_sim_f64.cu",
-               "K3": "storage_tpu_torch/ops/csrc/path_sim.cu (float64 mode)"}
+F64_SOURCES = {"K1": "storage_tpu_torch/ops/csrc/backward_update.cu (float64 instantiation)",
+               "K2": "storage_tpu_torch/ops/csrc/forward_sim.cu (float64 instantiation)",
+               "K3": "storage_tpu_torch/ops/csrc/path_sim.cu (float64 instantiation)"}
 # The tree phase: the README oracle (tests/test_trinomial.py), 24,809.48 within
 # 2%; the headline storage through a one-factor tree (spot vol 0.85, mean
 # reversion 5.5, daily steps); the intrinsic tree against the intrinsic
@@ -532,10 +533,11 @@ def phase_backward_d5(captured):
                            min_tiles_per_block=2)
 
 
-def phase_backward_large_grid(captured):
+def phase_backward_large_grid(captured, dtype=None):
     """K1 at G = 700, D = 5 (past the PR-1 kernel's shared-memory limit) on
     random inputs at COMPARE_SIMS sims, with the recorded launch's basis:
-    decisions move inventory by at most 4 grid points, as on the main path."""
+    decisions move inventory by at most 4 grid points, as on the main path.
+    With ``dtype`` float64 the same inputs go to the float64 instantiation."""
     import torch
 
     args, kw = captured["bwd"]
@@ -554,7 +556,50 @@ def phase_backward_large_grid(captured):
                       torch.rand(2, F, generator=gen, device="cuda") * 0.3], 1)
     large = (r(F, S, scale=0.5), r(F, S, scale=0.5), v_next, r(D, G, B + 2, scale=20.0),
              v_next.mean(dim=1), musd, j, torch.rand(D, G, generator=gen, device="cuda"), scal)
-    return _check_backward(f"K1 backward_update G={G} D={D}", large, kw)
+    if dtype is not None:
+        large = tuple(a.to(dtype) if a.is_floating_point() else a for a in large)
+    name = "" if dtype is None else f" {str(dtype).split('.')[-1]}"
+    return _check_backward(f"K1 backward_update{name} G={G} D={D}", large, kw)
+
+
+def forward_flips(args, kw, panels=False):
+    """K2 against its plain version on ``args``: the near-tie flips and the
+    agreement that ``_check_forward`` holds to its bounds.  A path whose PV
+    is off by more than its dtype's tolerance took a flipped decision; with
+    ``panels`` a path also counts as flipped where any of its volumes differ
+    (a flip can leave the PV within the tolerance: the path rejoins, or the
+    tie was exact)."""
+    import torch
+    from storage_tpu_torch.ops import forward
+
+    factors = args[0]
+    n, _, S = factors.shape
+    pv_rtol = F64_PV_RTOL if factors.dtype == torch.float64 else 1e-4
+    kw = dict(kw, panels=None)
+    out_k = out_r = None
+    if panels:
+        out_k = torch.full((n, 6, S), float("nan"), device=factors.device, dtype=factors.dtype)
+        out_r = torch.empty_like(out_k)
+    s_k, x_k, inv_k, pv_k = forward._forward_sim_cuda(*args, **dict(kw, panels=out_k))
+    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **dict(kw, panels=out_r))
+    torch.cuda.synchronize()
+    pv_diff = (pv_k - pv_r).abs()
+    flipped = pv_diff > pv_rtol * pv_r.abs().clamp_min(1e-6 * float(pv_r.abs().max()))
+    out = dict(e_sums=rel_err(s_k, s_r), e_xsums=rel_err(x_k, x_r),
+               pv_max_diff=float(pv_diff.max()))
+    if panels:
+        vol_k, vol_r = out_k[:, 1], out_r[:, 1]
+        flipped |= ((vol_k - vol_r).abs() > PANEL_RTOL * vol_r.abs().max()).any(dim=0)
+        out.update(panels_finite=bool(torch.isfinite(out_k).all()),
+                   e_panel=max(rel_err(out_k[:, f][:, ~flipped], out_r[:, f][:, ~flipped])
+                               for f in range(6)))
+    frac = float(flipped.float().mean())
+    out.update(
+        flipped=int(flipped.sum()), frac=frac, per_decision=frac / n,
+        npv_effect=abs(float(pv_k.double().mean() - pv_r.double().mean()))
+        / abs(float(pv_r.mean())),
+        max_ok=float(pv_diff[~flipped].max()) if bool((~flipped).any()) else 0.0)
+    return out
 
 
 def _check_forward(label, args, kw, panels=False, min_tiles_per_block=2):
@@ -572,9 +617,9 @@ def _check_forward(label, args, kw, panels=False, min_tiles_per_block=2):
     spec = kw["spec"]
     D = 3 + 2 * kw.get("extra_decisions", 0)
     f64 = factors.dtype == torch.float64
-    pv_rtol, flip_max, npv_rtol, sums_rtol = (
-        (F64_PV_RTOL, F64_FLIP_FRAC_MAX, F64_NPV_RTOL, F64_PARTIALS_RTOL) if f64
-        else (1e-4, FLIP_FRAC_MAX, FWD_NPV_RTOL, PARTIALS_RTOL))
+    flip_max, npv_rtol, sums_rtol = (
+        (F64_FLIP_FRAC_MAX, F64_NPV_RTOL, F64_PARTIALS_RTOL) if f64
+        else (FLIP_FRAC_MAX, FWD_NPV_RTOL, PARTIALS_RTOL))
     blocks = forward.grid_blocks(csrc.kernels(), factors.device, spec, S, kw["num_grid"],
                                  spec.num_basis, F, pillars.shape[1], pillars.shape[2], D,
                                  dtype=factors.dtype)
@@ -582,54 +627,33 @@ def _check_forward(label, args, kw, panels=False, min_tiles_per_block=2):
     check(tiles_per_block >= min_tiles_per_block,
           f"{label}: {S} sims give {blocks} blocks {tiles_per_block} tiles each, "
           f"fewer than {min_tiles_per_block}")
-    kw = dict(kw, panels=None)
-    out_k = out_r = None
-    if panels:
-        out_k = torch.full((n, 6, S), float("nan"), device=factors.device, dtype=factors.dtype)
-        out_r = torch.empty_like(out_k)
-    s_k, x_k, inv_k, pv_k = forward._forward_sim_cuda(*args, **dict(kw, panels=out_k))
-    s_r, x_r, inv_r, pv_r = forward.forward_sim_reference(*args, **dict(kw, panels=out_r))
-    torch.cuda.synchronize()
-    e_sums, e_xsums = rel_err(s_k, s_r), rel_err(x_k, x_r)
-    pv_diff = (pv_k - pv_r).abs()
-    flipped = pv_diff > pv_rtol * pv_r.abs().clamp_min(1e-6 * float(pv_r.abs().max()))
+    fl = forward_flips(args, kw, panels)
     panel_note = ""
+    kw = dict(kw, panels=None)
     if panels:
-        # A flipped near-tie decision can also leave the PV within 1e-4 (the
-        # path rejoins, or the tie was exact): with panels a path counts as
-        # flipped where any of its volumes differ.
-        vol_k, vol_r = out_k[:, 1], out_r[:, 1]
-        flipped |= ((vol_k - vol_r).abs() > PANEL_RTOL * vol_r.abs().max()).any(dim=0)
-    frac = float(flipped.float().mean())
-    per_decision = frac / n
-    npv_effect = abs(float(pv_k.double().mean() - pv_r.double().mean())) / abs(float(pv_r.mean()))
-    max_ok = float(pv_diff[~flipped].max()) if bool((~flipped).any()) else 0.0
-    if panels:
-        check(bool(torch.isfinite(out_k).all()), f"{label}: the kernel left panel entries unwritten")
-        e_panel = max(rel_err(out_k[:, f][:, ~flipped], out_r[:, f][:, ~flipped])
-                      for f in range(6))
-        panel_note = f", panels outside flips rel {e_panel:.2e}"
-        check(e_panel <= PANEL_RTOL, f"{label} panels disagree: {e_panel:.2e} > {PANEL_RTOL}")
-        del out_r, vol_k, vol_r
-        kw = dict(kw, panels=out_k)
+        check(fl["panels_finite"], f"{label}: the kernel left panel entries unwritten")
+        panel_note = f", panels outside flips rel {fl['e_panel']:.2e}"
+        check(fl["e_panel"] <= PANEL_RTOL,
+              f"{label} panels disagree: {fl['e_panel']:.2e} > {PANEL_RTOL}")
+        kw = dict(kw, panels=torch.empty((n, 6, S), device=factors.device, dtype=factors.dtype))
     ms = cuda_ms(lambda: forward._forward_sim_cuda(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: forward.forward_sim_reference(*args, **kw), 1)
     bound_ms, bound_by = k2_bound(n, S, F, spec.num_basis, D, panels,
                                   itemsize=factors.element_size())
     print(f"[{label}] {S} sims x {n} steps, {blocks} blocks of >= {tiles_per_block} tiles: sums rel "
-          f"{e_sums:.2e}, xsums rel {e_xsums:.2e}, pv max|diff| {float(pv_diff.max()):.3e} "
-          f"(outside flips {max_ok:.3e}), flipped paths {int(flipped.sum())} = {frac:.2e} "
-          f"= {per_decision:.2e} per decision, NPV effect {npv_effect:.2e}{panel_note}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
-    check(per_decision <= flip_max / 10,
-          f"{label} flips {per_decision:.2e} per decision > {flip_max / 10}")
-    check(npv_effect <= npv_rtol, f"{label} NPV effect {npv_effect:.2e} > {npv_rtol}")
-    check(e_sums <= sums_rtol and e_xsums <= sums_rtol,
-          f"{label} sums disagree: sums {e_sums:.2e}, xsums {e_xsums:.2e}")
+          f"{fl['e_sums']:.2e}, xsums rel {fl['e_xsums']:.2e}, pv max|diff| "
+          f"{fl['pv_max_diff']:.3e} (outside flips {fl['max_ok']:.3e}), flipped paths "
+          f"{fl['flipped']} = {fl['frac']:.2e} = {fl['per_decision']:.2e} per decision, NPV "
+          f"effect {fl['npv_effect']:.2e}{panel_note}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+    check(fl["per_decision"] <= flip_max / 10,
+          f"{label} flips {fl['per_decision']:.2e} per decision > {flip_max / 10}")
+    check(fl["npv_effect"] <= npv_rtol, f"{label} NPV effect {fl['npv_effect']:.2e} > {npv_rtol}")
+    check(fl["e_sums"] <= sums_rtol and fl["e_xsums"] <= sums_rtol,
+          f"{label} sums disagree: sums {fl['e_sums']:.2e}, xsums {fl['e_xsums']:.2e}")
     # library_ms: no single torch call computes K2's function (a sequential
     # argmax policy over the horizon).
-    return dict(max_abs_err=float(pv_diff.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(max_abs_err=fl["pv_max_diff"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, share=bound_ms / ms, library_ms=None)
 
 
@@ -1651,6 +1675,7 @@ def main() -> int:
         k1 = phase_backward(captured)
         k1_d5 = phase_backward_d5(captured)
         k1_large = phase_backward_large_grid(captured)
+        k1_large_f64 = phase_backward_large_grid(captured, torch.float64)
         k2 = phase_forward(captured)
         k2_variants = phase_forward_variants(captured)
         k3 = phase_path_sim(captured)
@@ -1671,6 +1696,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         f64_counts, recorded64, f64_every, f64_spans = phase_f64_main(main_npv, main_intrinsic)
         k1_f64, k2_f64, k3_f64 = phase_f64_kernels(recorded64, f64_every, f64_spans)
+        k1_f64[f"f64_G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}"] = k1_large_f64
         del recorded64
         gc.collect()
         torch.cuda.empty_cache()
@@ -1687,7 +1713,8 @@ def main() -> int:
     # The float64 variants' launches on f64_main, by mode: K2 once per span,
     # the tail one of them; K3 one checkpoint pass and then spans per path set.
     f64_launches = {
-        "K1": {"f64": f64_counts["backward_update"]},
+        "K1": {"f64": f64_counts["backward_update"],
+               f"f64_G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}": 0},
         "K2": {"f64": f64_counts["forward_sim"] - 1, "f64_tail": 1},
         "K3": {"f64": 0, "f64_checkpoints": PATH_SETS,
                "f64_span": f64_counts["path_sim"] - PATH_SETS}}

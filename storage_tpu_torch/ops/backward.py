@@ -2,10 +2,11 @@
 exact regression solve assembled from its partials.
 
 Counterpart of the JAX package's ``ops/pallas_backward.py``.  The kernel
-(``csrc/backward_update.cu``; in float64 ``csrc/backward_update_f64.cu``)
-replaces ``_backward_kernel`` there; it computes the XLA math of
-``_backward_step_core`` (``engines/lsmc.py``) in the operands' dtype with
-exact linear interpolation, from a per-step table
+(``csrc/backward_update.cu``, one source templated on the element type: a
+float32 and a float64 instantiation) replaces ``_backward_kernel`` there;
+it computes the XLA math of ``_backward_step_core`` (``engines/lsmc.py``)
+in the operands' dtype with exact linear interpolation, from a per-step
+table
 
     table[d, g, :B]   = M_d @ coeffs'        (interpolation folded through the fit)
     table[d, g, B]    = M_d @ vbar - cost_npv[g, d]

@@ -24,9 +24,8 @@ from pathlib import Path
 from typing import Optional
 
 _SRC_DIR = Path(__file__).resolve().parent
-_SOURCES = ("backward_update.cu", "forward_sim.cu", "path_sim.cu", "backward_update_f64.cu",
-            "forward_sim_f64.cu")
-_HEADERS = ("storage_kernels.cuh", "storage_kernels_f64.cuh")
+_SOURCES = ("backward_update.cu", "forward_sim.cu", "path_sim.cu")
+_HEADERS = ("storage_kernels.cuh",)
 BUILD_DIR = _SRC_DIR.parent.parent / "_build"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-Xcompiler", "-fPIC",

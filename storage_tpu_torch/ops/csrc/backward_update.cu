@@ -24,10 +24,21 @@
 // flops for the fitted totals, 10 G for the winning decision's actual total
 // and its centred value, and 2 (B+1)(G + B+1) for the partials: 10.3 GFLOP
 // at D = 3 and 14.9 GFLOP at D = 5 (B = 10), 0.154 and 0.223 ms at 67 TFLOP/s
-// float32. So the bytes bound it at both. The tensor cores are not used:
-// the only product (praw) is a fifth of the flops at D = 3, and TF32's
-// 10-bit mantissa is too coarse for partials whose Gram has a condition
-// number up to 3e6 and for fitted totals that decide an argmax.
+// float32. So the bytes bound it at both. The tensor cores are not used in
+// float32: the only product (praw) is a fifth of the flops at D = 3, and
+// TF32's 10-bit mantissa is too coarse for partials whose Gram has a
+// condition number up to 3e6 and for fitted totals that decide an argmax.
+// In float64 the bytes double (1.6 GB: 0.492 ms with the factor rows) and
+// the same 10.3 GFLOP take 0.30 ms at the 34 TFLOP/s of float64 outside the
+// tensor cores: the bytes bound it too.
+//
+// One source, two instantiations: K1Traits<T> holds what differs between
+// float and double (chunk, lookahead, resident blocks, the actual total's
+// rounding, the partials' product); Elem<T> (storage_kernels.cuh) the
+// vectors. A quad of four elements is one float4 or two double2 reads, so
+// the float32 design below reads the same in double. The float32 machine
+// code is its pre-template parent's, instruction for instruction
+// (tools/kernel_turns.py --sass).
 //
 // Design:
 // - One sim per thread, 128 threads per block. A persistent grid
@@ -72,66 +83,126 @@
 //   torch rounds every product and sum separately, so near-tie decisions
 //   may flip against the plain version; chip_smoke counts them.
 //
+// Float64 (K1Traits<double>), the same design with these differences:
+// - Four resident blocks (128 registers): measured against five and six
+//   (96 and 80 registers, which spill 268 B and 804 B) and against 8-point
+//   chunks (PERF.md): the kernel is held up by its fitted totals (table
+//   reads and FMA chains) more than by occupancy.
+// - The partials' product runs on the FP64 tensor cores (mma.m8n8k4.f64,
+//   IEEE double products and sums): one 8 x 8 tile of praw (graw once a
+//   tile) per warp, over the tile's 128 sims in four chains, each entry
+//   written by one lane in a fixed order. TF32's objection does not apply.
+// - The winner's actual total is rounded as torch rounds it,
+//   ((v0 (1 - w) + v1 w) + affine) + price spot, and so are the design rows
+//   and the spot, so a V entry whose decision does not flip is the plain
+//   version's bit for bit.
+// - Tile rows are padded by two doubles (16 bytes) instead of four floats;
+//   table rows, w and j are copied by 8- and 4-byte cp.async; j rides in
+//   the low word of a double of the per-entry constants.
+//
 // Shared memory per block, in bytes, with NQ = max(3, ceil((B + 2) / 4)):
-//   4 [2 D kChunk (4 NQ + 10) + (B + 1 + kChunk)(128 + 4)]
-// (D = 3, B = 10: 22,704 B; D = 5: 28,336 B.) V_out is a separate buffer: a
-// chunk reads rows of V_next outside itself.
+//   sizeof(T) [2 D kChunk (4 NQ + 10) + (B + 1 + kChunk)(128 + 16 / sizeof(T))]
+// (float32, D = 3, B = 10: 22,704 B; D = 5: 28,336 B; float64, D = 3:
+// 44,976 B.) V_out is a separate buffer: a chunk reads rows of V_next
+// outside itself.
 #include "storage_kernels.cuh"
 
 namespace storage_kernels {
 
-constexpr int kThreads = 128;                // threads per block = sims per tile
-constexpr int kChunk = 16;                   // grid points per chunk
-constexpr int kDUnroll = 3;                  // decisions evaluated together
-constexpr int kLookahead = 2;                // grid points a V_next read is issued ahead
-constexpr int kMinBlocks = 7;                // resident blocks per SM the registers allow
-constexpr int kPitch = kThreads + 4;         // row pitch of the xr and vc tiles (floats)
-constexpr int kAGroups = kThreads / kChunk;  // basis-row groups of the praw product
-constexpr int kAPerThread = (kMaxBasis + 1 + kAGroups - 1) / kAGroups;
-static_assert(kThreads % kChunk == 0, "a chunk must divide the block");
-static_assert(kMaxBasis + 2 <= 20, "a fitted row is at most five float4s");
+constexpr int kThreads = 128;  // threads per block = sims per tile
 
+// The constants of each instantiation, and how it rounds the winner's actual
+// total (see the head of this file).
+template <class T> struct K1Traits;
+
+template <>
+struct K1Traits<float> {
+  using Round = Contract;           // the design rows and the spot
+  static constexpr bool kTensorCores = false;  // the partials' product
+  static constexpr int kChunk = 16;      // grid points per chunk
+  static constexpr int kDUnroll = 3;     // decisions evaluated together
+  static constexpr int kLookahead = 2;   // grid points a V_next read is issued ahead
+  static constexpr int kMinBlocks = 7;   // resident blocks per SM the registers allow
+  // fma(price, spot, fma(v1, w, v0 (1 - w)) + affine)
+  static __device__ __forceinline__ float actual_total(float v0, float v1, float w, float w1,
+                                                       float affine, float price, float spot) {
+    const float lin = __fmaf_rn(v1, w, __fmul_rn(v0, w1));
+    return __fmaf_rn(price, spot, __fadd_rn(lin, affine));
+  }
+};
+
+template <>
+struct K1Traits<double> {
+  using Round = TorchRounding;
+  static constexpr bool kTensorCores = true;
+  static constexpr int kChunk = 16;
+  static constexpr int kDUnroll = 3;
+  static constexpr int kLookahead = 2;
+  static constexpr int kMinBlocks = 4;
+  // ((v0 (1 - w) + v1 w) + affine) + price spot, each rounded as torch does.
+  static __device__ __forceinline__ double actual_total(double v0, double v1, double w, double w1,
+                                                        double affine, double price,
+                                                        double spot) {
+    const double lin = __dadd_rn(__dmul_rn(v0, w1), __dmul_rn(v1, w));
+    return __dadd_rn(__dadd_rn(lin, affine), __dmul_rn(price, spot));
+  }
+};
+
+// Row pitch of the xr and vc tiles (elements): a 16-byte pad against bank
+// conflicts of the product's vector reads.
+template <class T>
+__host__ __device__ constexpr int tile_pitch() {
+  return kThreads + 16 / (int)sizeof(T);
+}
+static_assert(kMaxBasis + 2 <= 20, "a fitted row is at most five quads");
+
+template <class T>
 struct Operands {
-  const float* f_cur;   // [F, S] factors of this period
-  const float* f_prev;  // [F, S] factors of the previous period
-  const float* v_next;  // [G, S] next-period values
-  float* v_out;         // [G, S] this-period values
-  const float* table;   // [D, G, B+2] fitted tables + affine columns
-  const float* vbar;    // [G] sim-mean of v_next
-  const float* musd;    // [2, B] standardization mean / scale
+  const T* f_cur;       // [F, S] factors of this period
+  const T* f_prev;      // [F, S] factors of the previous period
+  const T* v_next;      // [G, S] next-period values
+  T* v_out;             // [G, S] this-period values
+  const T* table;       // [D, G, B+2] fitted tables + affine columns
+  const T* vbar;        // [G] sim-mean of v_next
+  const T* musd;        // [2, B] standardization mean / scale
   const int* geom_j;    // [D, G] lower interpolation index
-  const float* geom_w;  // [D, G] upper interpolation weight
-  const float* scal;    // [2, 1+F] (drift, vols) this / previous period
-  float* part;          // [nblk, B+1, G + B+1] per-block (praw | graw)
-  long long num_sims;   // S < 2^30
-  unsigned row_bytes;   // 4 S: bytes from one V row to the next
+  const T* geom_w;      // [D, G] upper interpolation weight
+  const T* scal;        // [2, 1+F] (drift, vols) this / previous period
+  T* part;              // [nblk, B+1, G + B+1] per-block (praw | graw)
+  long long num_sims;   // S < 2^32 / sizeof(T)
+  unsigned row_bytes;   // sizeof(T) S: bytes from one V row to the next
   int num_grid;
   int num_decisions;
 };
 
 // Shared buffers of one stage: one work item's (tile, chunk) copies, and
 // the per-(decision, grid point) constants derived from them.
+template <class T>
 struct Stage {
-  float* tab;   // [D kChunk, 4 NQ] table rows (B weights, affine, price), zero-padded
-  float* raw;   // [D kChunk, 2] (w, j) as copied
-  float4* dec;  // [D kChunk, 2] (vbar[j], vbar[j+1], w, 1 - w), (affine, price, j, j + 1)
+  T* tab;  // [D kChunk, 4 NQ] table rows (B weights, affine, price), zero-padded
+  T* raw;  // [D kChunk, 2] (w, j) as copied
+  // [D kChunk, 2] (vbar[j], vbar[j+1], w, 1 - w), (affine, price, j, j + 1)
+  typename Elem<T>::Quad* dec;
 };
 
-__host__ __device__ constexpr int stage_floats(int dc, int nq) { return dc * (4 * nq + 10); }
+__host__ __device__ constexpr int stage_elems(int dc, int nq) { return dc * (4 * nq + 10); }
 
 // Stage k (0 or 1); the two stages lead the shared memory.
-__device__ __forceinline__ Stage stage_at(float* smem, int k, int DC, int NQ) {
-  Stage st;
-  st.tab = smem + k * stage_floats(DC, NQ);
+template <class T>
+__device__ __forceinline__ Stage<T> stage_at(T* smem, int k, int DC, int NQ) {
+  Stage<T> st;
+  st.tab = smem + k * stage_elems(DC, NQ);
   st.raw = st.tab + DC * 4 * NQ;
-  st.dec = reinterpret_cast<float4*>(st.raw + 2 * DC);
+  st.dec = reinterpret_cast<typename Elem<T>::Quad*>(st.raw + 2 * DC);
   return st;
 }
 
 // Start the asynchronous copies of chunk c's table rows, w and j into stage
 // st (one commit group).
-template <int kNQ>
-__device__ __forceinline__ void issue_copies(const Operands& op, const Stage& st, int B, int c) {
+template <class T, int kNQ>
+__device__ __forceinline__ void issue_copies(const Operands<T>& op, const Stage<T>& st, int B,
+                                             int c) {
+  constexpr int kChunk = K1Traits<T>::kChunk;
   const int G = op.num_grid;
   const int g0 = c * kChunk;
   const int gcount = min(kChunk, G - g0);
@@ -140,11 +211,11 @@ __device__ __forceinline__ void issue_copies(const Operands& op, const Stage& st
     const int gl = e % kChunk;
     if (gl < gcount) {
       const size_t dg = (size_t)d * G + g0 + gl;
-      const float* row = op.table + dg * (B + 2);
-      float* dst = st.tab + e * 4 * kNQ;
-      for (int b = 0; b < B + 2; ++b) cp_async4(dst + b, row + b);
-      for (int b = B + 2; b < 4 * kNQ; ++b) dst[b] = 0.0f;
-      cp_async4(st.raw + 2 * e, op.geom_w + dg);
+      const T* row = op.table + dg * (B + 2);
+      T* dst = st.tab + e * 4 * kNQ;
+      for (int b = 0; b < B + 2; ++b) cp_async_elem(dst + b, row + b);
+      for (int b = B + 2; b < 4 * kNQ; ++b) dst[b] = T(0);
+      cp_async_elem(st.raw + 2 * e, op.geom_w + dg);
       cp_async4(st.raw + 2 * e + 1, op.geom_j + dg);
     }
   }
@@ -152,18 +223,19 @@ __device__ __forceinline__ void issue_copies(const Operands& op, const Stage& st
 }
 
 // The per-(decision, grid point) constants of chunk c from its landed copies.
-template <int kNQ>
-__device__ __forceinline__ void prepare_stage(const Operands& op, const Stage& st, int B, int c) {
+template <class T, int kNQ>
+__device__ __forceinline__ void prepare_stage(const Operands<T>& op, const Stage<T>& st, int B,
+                                              int c) {
+  using E = Elem<T>;
+  constexpr int kChunk = K1Traits<T>::kChunk;
   const int gcount = min(kChunk, op.num_grid - c * kChunk);
   for (int e = threadIdx.x; e < op.num_decisions * kChunk; e += kThreads) {
     if (e % kChunk < gcount) {
-      const float w = st.raw[2 * e];
-      const int j = __float_as_int(st.raw[2 * e + 1]);
-      const float* row = st.tab + e * 4 * kNQ;
-      st.dec[2 * e] = make_float4(__ldg(op.vbar + j), __ldg(op.vbar + j + 1), w,
-                                  __fsub_rn(1.0f, w));
-      st.dec[2 * e + 1] = make_float4(row[B], row[B + 1], __int_as_float(j),
-                                      __int_as_float(j + 1));
+      const T w = st.raw[2 * e];
+      const int j = E::int_at(st.raw + 2 * e + 1);
+      const T* row = st.tab + e * 4 * kNQ;
+      st.dec[2 * e] = E::quad(__ldg(op.vbar + j), __ldg(op.vbar + j + 1), w, sub_rn(T(1), w));
+      st.dec[2 * e + 1] = E::quad(row[B], row[B + 1], E::from_index(j), E::from_index(j + 1));
     }
   }
 }
@@ -176,34 +248,40 @@ __device__ __forceinline__ void prepare_stage(const Operands& op, const Stage& s
 // winner's two reads are issued at grid point g and used at g + kLookahead,
 // after the fitted totals in between, which hides their latency. A sim past
 // the last one reads sim 0's column (vcol) and writes nothing but a zero vc.
-template <int kNQ>
-__device__ __forceinline__ void decide_chunk(const Operands& op, const Stage& st,
-                                             const float (&xn)[4 * kNQ], float spot, bool valid,
+template <class T, int kNQ>
+__device__ __forceinline__ void decide_chunk(const Operands<T>& op, const Stage<T>& st,
+                                             const T (&xn)[4 * kNQ], T spot, bool valid,
                                              long long s, const char* vcol, int g0, int gcount,
-                                             float* s_vc) {
+                                             T* s_vc) {
+  using Tr = K1Traits<T>;
+  using E = Elem<T>;
+  using Quad = typename E::Quad;
+  constexpr int kChunk = Tr::kChunk;
+  constexpr int kLookahead = Tr::kLookahead;
+  constexpr int kPitch = tile_pitch<T>();
   const int tid = threadIdx.x;
   // The reads in flight: stage a holds grid point gl - kLookahead + a's
   // winning entry and its two V_next values.
   int pe[kLookahead];
-  float pr0[kLookahead], pr1[kLookahead];
+  T pr0[kLookahead], pr1[kLookahead];
   for (int gl = 0; gl < gcount + kLookahead; ++gl) {
     int ne;
-    float nr0, nr1;
+    T nr0, nr1;
     if (gl < gcount) {
-      float best_fit = 0.0f;
+      T best_fit = T(0);
       ne = gl;
-#pragma unroll kDUnroll
+#pragma unroll (Tr::kDUnroll)
       for (int d = 0; d < op.num_decisions; ++d) {
         const int e = d * kChunk + gl;
-        const float4* T = reinterpret_cast<const float4*>(st.tab + e * 4 * kNQ);
-        float fit = 0.0f;
+        const Quad* Tq = reinterpret_cast<const Quad*>(st.tab + e * 4 * kNQ);
+        T fit = T(0);
 #pragma unroll
         for (int q = 0; q < kNQ; ++q) {
-          const float4 t = T[q];
-          fit = __fmaf_rn(t.x, xn[4 * q], fit);
-          fit = __fmaf_rn(t.y, xn[4 * q + 1], fit);
-          fit = __fmaf_rn(t.z, xn[4 * q + 2], fit);
-          fit = __fmaf_rn(t.w, xn[4 * q + 3], fit);
+          const Quad t = Tq[q];
+          fit = fma_rn(t.x, xn[4 * q], fit);
+          fit = fma_rn(t.y, xn[4 * q + 1], fit);
+          fit = fma_rn(t.z, xn[4 * q + 2], fit);
+          fit = fma_rn(t.w, xn[4 * q + 3], fit);
         }
         // Decision 0 seeds unconditionally; later ones replace it only when
         // strictly better (first-occurrence argmax).
@@ -212,23 +290,20 @@ __device__ __forceinline__ void decide_chunk(const Operands& op, const Stage& st
           ne = e;
         }
       }
-      const float4 k1 = st.dec[2 * ne + 1];  // affine, price, j, j + 1
-      nr0 = __ldg(reinterpret_cast<const float*>(vcol + (size_t)__float_as_uint(k1.z) *
-                                                            op.row_bytes));
-      nr1 = __ldg(reinterpret_cast<const float*>(vcol + (size_t)__float_as_uint(k1.w) *
-                                                            op.row_bytes));
+      const Quad k1 = st.dec[2 * ne + 1];  // affine, price, j, j + 1
+      nr0 = __ldg(reinterpret_cast<const T*>(vcol + (size_t)E::to_index(k1.z) * op.row_bytes));
+      nr1 = __ldg(reinterpret_cast<const T*>(vcol + (size_t)E::to_index(k1.w) * op.row_bytes));
     }
     if (gl >= kLookahead) {  // the actual total of grid point gl - kLookahead
       const int g = g0 + gl - kLookahead;
-      const float vb = __ldg(op.vbar + g);
-      const float4 k0 = st.dec[2 * pe[0]];      // vbar[j], vbar[j+1], w, 1 - w
-      const float4 k1 = st.dec[2 * pe[0] + 1];  // affine, price, j, j + 1
-      const float v0 = __fsub_rn(pr0[0], k0.x);
-      const float v1 = __fsub_rn(pr1[0], k0.y);
-      const float lin = __fmaf_rn(v1, k0.z, __fmul_rn(v0, k0.w));
-      const float act = __fmaf_rn(k1.y, spot, __fadd_rn(lin, k1.x));
+      const T vb = __ldg(op.vbar + g);
+      const Quad k0 = st.dec[2 * pe[0]];      // vbar[j], vbar[j+1], w, 1 - w
+      const Quad k1 = st.dec[2 * pe[0] + 1];  // affine, price, j, j + 1
+      const T v0 = sub_rn(pr0[0], k0.x);
+      const T v1 = sub_rn(pr1[0], k0.y);
+      const T act = Tr::actual_total(v0, v1, k0.z, k0.w, k1.x, k1.y, spot);
       if (valid) op.v_out[(size_t)g * op.num_sims + s] = act;
-      s_vc[(g - g0) * kPitch + tid] = valid ? __fsub_rn(act, vb) : 0.0f;
+      s_vc[(g - g0) * kPitch + tid] = valid ? sub_rn(act, vb) : T(0);
     }
 #pragma unroll
     for (int a = 0; a < kLookahead; ++a) {
@@ -239,10 +314,45 @@ __device__ __forceinline__ void decide_chunk(const Operands& op, const Stage& st
   }
 }
 
-template <int kNQ>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    backward_update_kernel(Operands op, BasisDesc bd) {
-  extern __shared__ __align__(16) float smem[];
+// d += a b on the FP64 tensor cores: one m8n8k4 step of an 8 x 8 tile
+// (IEEE double products and sums).
+__device__ __forceinline__ void dmma_m8n8k4(double (&d)[2], double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d[0]), "+d"(d[1])
+               : "d"(a), "d"(b));
+}
+
+// The 8 x 8 tile sum_s X[r, s] Y[c, s] over a tile's kThreads sims, X and Y
+// rows of kPitch doubles: this lane's entries (r = lane / 4, c = 2 (lane % 4)
+// + i), in four chains over the sims (s / 4 mod 4), added in a fixed order.
+template <int kPitch>
+__device__ __forceinline__ void tile_product(const double* X, const double* Y, int lane,
+                                             double (&d)[2]) {
+  const double* x = X + (lane / 4) * kPitch + lane % 4;
+  const double* y = Y + (lane / 4) * kPitch + lane % 4;
+  double acc[4][2] = {};
+#pragma unroll
+  for (int s = 0; s < kThreads; s += 16) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) dmma_m8n8k4(acc[h], x[s + 4 * h], y[s + 4 * h]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) d[i] = (acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]);
+}
+
+template <class T, int kNQ>
+__global__ void __launch_bounds__(kThreads, K1Traits<T>::kMinBlocks)
+    backward_update_kernel(Operands<T> op, BasisDesc bd) {
+  using Tr = K1Traits<T>;
+  using R = typename Tr::Round;
+  using Quad = typename Elem<T>::Quad;
+  constexpr int kChunk = Tr::kChunk;
+  constexpr int kPitch = tile_pitch<T>();
+  constexpr int kAGroups = kThreads / kChunk;  // basis-row groups of the praw product
+  constexpr int kAPerThread = (kMaxBasis + 1 + kAGroups - 1) / kAGroups;
+  static_assert(kThreads % kChunk == 0, "a chunk must divide the block");
+  extern __shared__ __align__(16) float smem_words[];
+  T* smem = reinterpret_cast<T*>(smem_words);  // the dynamic shared memory as T elements
   const int tid = threadIdx.x;
   const int B = bd.num_basis;
   const int F = bd.num_factors;
@@ -251,25 +361,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int DC = op.num_decisions * kChunk;
   const long long S = op.num_sims;
 
-  float* s_xr = smem + 2 * stage_floats(DC, kNQ);  // [B1, kPitch] previous period's design rows
-  float* s_vc = s_xr + B1 * kPitch;                 // [kChunk, kPitch] centred new values
+  T* s_xr = smem + 2 * stage_elems(DC, kNQ);  // [B1, kPitch] previous period's design rows
+  T* s_vc = s_xr + B1 * kPitch;                 // [kChunk, kPitch] centred new values
 
   const int nchunks = (G + kChunk - 1) / kChunk;
   const long long ntiles = (S + kThreads - 1) / kThreads;
   const long long my_tiles = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
   const long long nitems = my_tiles * nchunks;
   const int part_row = G + B1;
-  float* my_part = op.part + (size_t)blockIdx.x * B1 * part_row;
+  T* my_part = op.part + (size_t)blockIdx.x * B1 * part_row;
 
   // Pipeline: item it + 1's copies are in flight during item it's decisions,
   // and its constants are prepared during item it's product.
-  issue_copies<kNQ>(op, stage_at(smem, 0, DC, kNQ), B, 0);
+  issue_copies<T, kNQ>(op, stage_at(smem, 0, DC, kNQ), B, 0);
   cp_async_wait_all();
   __syncthreads();
-  prepare_stage<kNQ>(op, stage_at(smem, 0, DC, kNQ), B, 0);
+  prepare_stage<T, kNQ>(op, stage_at(smem, 0, DC, kNQ), B, 0);
 
-  float xn[4 * kNQ];  // (standardized design row, 1, spot, 0...) of this thread's sim
-  float spot = 0.0f;
+  T xn[4 * kNQ];  // (standardized design row, 1, spot, 0...) of this thread's sim
+  T spot = T(0);
   bool valid = false;
   long long s = 0;
   const char* vcol = nullptr;  // the sim's V_next column (sim 0's past the last sim)
@@ -282,22 +392,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int c = (int)(it % nchunks);
     const int c1 = (int)((it + 1) % nchunks);
     const bool more = it + 1 < nitems;
-    if (more) issue_copies<kNQ>(op, stage_at(smem, buf ^ 1, DC, kNQ), B, c1);
+    if (more) issue_copies<T, kNQ>(op, stage_at(smem, buf ^ 1, DC, kNQ), B, c1);
     __syncthreads();  // this item's constants are ready; the last product's reads are done
 
     if (c == 0) {  // a new tile: its sim's design rows
       s = tile * kThreads + tid;
       valid = s < S;
       vcol = reinterpret_cast<const char*>(op.v_next + (valid ? s : 0));
-      float xr[kMaxBasis + 1];
-      float xfull[kMaxBasis];
-      spot = 0.0f;
+      T xr[kMaxBasis + 1];
+      T xfull[kMaxBasis];
+      spot = T(0);
 #pragma unroll
-      for (int b = 0; b < kMaxBasis; ++b) xfull[b] = 0.0f;
+      for (int b = 0; b < kMaxBasis; ++b) xfull[b] = T(0);
 #pragma unroll
-      for (int b = 0; b <= kMaxBasis; ++b) xr[b] = 0.0f;
+      for (int b = 0; b <= kMaxBasis; ++b) xr[b] = T(0);
       if (valid) {
-        float fc[kMaxFactors], fp[kMaxFactors];
+        T fc[kMaxFactors], fp[kMaxFactors];
 #pragma unroll
         for (int f = 0; f < kMaxFactors; ++f) {
           if (f < F) {
@@ -305,28 +415,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             fp[f] = op.f_prev[(size_t)f * S + s];
           }
         }
-        spot = spot_of(op.scal, fc, F);
-        design_row(bd, spot, fc, xfull);
-        const float spot_prev = spot_of(op.scal + 1 + F, fp, F);
-        design_row(bd, spot_prev, fp, xr);
+        spot = spot_of<R>(op.scal, fc, F);
+        design_row<R>(bd, spot, fc, xfull);
+        const T spot_prev = spot_of<R>(op.scal + 1 + F, fp, F);
+        design_row<R>(bd, spot_prev, fp, xr);
 #pragma unroll
         for (int b = 0; b < kMaxBasis; ++b) {
           if (b < B) {
-            xfull[b] = (xfull[b] - op.musd[b]) / op.musd[B + b];
-            xr[b] = (xr[b] - op.musd[b]) / op.musd[B + b];
+            xfull[b] = R::sub(xfull[b], op.musd[b]) / op.musd[B + b];
+            xr[b] = R::sub(xr[b], op.musd[b]) / op.musd[B + b];
           }
         }
 #pragma unroll
         for (int b = 0; b <= kMaxBasis; ++b) {
-          if (b == B) xr[b] = 1.0f;
+          if (b == B) xr[b] = T(1);
         }
       }
 #pragma unroll
       for (int b = 0; b < 4 * kNQ; ++b) {
         xn[b] = b < kMaxBasis && b < B ? xfull[b < kMaxBasis ? b : 0]
-                : b == B               ? 1.0f
+                : b == B               ? T(1)
                 : b == B + 1           ? spot
-                                       : 0.0f;
+                                       : T(0);
       }
 #pragma unroll
       for (int b = 0; b <= kMaxBasis; ++b) {
@@ -336,110 +446,163 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     const int g0 = c * kChunk;
     const int gcount = min(kChunk, G - g0);
-    decide_chunk<kNQ>(op, stage_at(smem, buf, DC, kNQ), xn, spot, valid, s, vcol, g0, gcount,
-                      s_vc);
+    decide_chunk<T, kNQ>(op, stage_at(smem, buf, DC, kNQ), xn, spot, valid, s, vcol, g0, gcount,
+                         s_vc);
     cp_async_wait_all();
     __syncthreads();  // the vc tile is complete; the next item's copies have landed
-    if (more) prepare_stage<kNQ>(op, stage_at(smem, buf ^ 1, DC, kNQ), B, c1);
+    if (more) prepare_stage<T, kNQ>(op, stage_at(smem, buf ^ 1, DC, kNQ), B, c1);
 
     // praw[a, chunk] += xr[a, tile] . vc[chunk, tile], in a fixed order.
     const bool first_tile = it < nchunks;
-    float acc[kAPerThread][4];  // four chains (sims s = 0, 1, 2, 3 mod 4) per entry
+    if constexpr (!Tr::kTensorCores) {
+      T acc[kAPerThread][4];  // four chains (sims s = 0, 1, 2, 3 mod 4) per entry
 #pragma unroll
-    for (int k = 0; k < kAPerThread; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0f;
+      for (int k = 0; k < kAPerThread; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = T(0);
 #pragma unroll 4
-    for (int s4 = 0; s4 < kThreads; s4 += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(s_vc + pg * kPitch + s4);
+      for (int s4 = 0; s4 < kThreads; s4 += 4) {
+        const Quad v = *reinterpret_cast<const Quad*>(s_vc + pg * kPitch + s4);
 #pragma unroll
-      for (int k = 0; k < kAPerThread; ++k) {
-        const int a = ag + k * kAGroups;
-        if (a < B1) {
-          const float4 x = *reinterpret_cast<const float4*>(s_xr + a * kPitch + s4);
-          acc[k][0] = acc[k][0] + x.x * v.x;
-          acc[k][1] = acc[k][1] + x.y * v.y;
-          acc[k][2] = acc[k][2] + x.z * v.z;
-          acc[k][3] = acc[k][3] + x.w * v.w;
+        for (int k = 0; k < kAPerThread; ++k) {
+          const int a = ag + k * kAGroups;
+          if (a < B1) {
+            const Quad x = *reinterpret_cast<const Quad*>(s_xr + a * kPitch + s4);
+            acc[k][0] = acc[k][0] + x.x * v.x;
+            acc[k][1] = acc[k][1] + x.y * v.y;
+            acc[k][2] = acc[k][2] + x.z * v.z;
+            acc[k][3] = acc[k][3] + x.w * v.w;
+          }
         }
       }
-    }
-    if (pg < gcount) {
+      if (pg < gcount) {
 #pragma unroll
-      for (int k = 0; k < kAPerThread; ++k) {
-        const int a = ag + k * kAGroups;
-        if (a < B1) {
-          float* out = my_part + a * part_row + g0 + pg;
-          const float tile_sum = (acc[k][0] + acc[k][1]) + (acc[k][2] + acc[k][3]);
+        for (int k = 0; k < kAPerThread; ++k) {
+          const int a = ag + k * kAGroups;
+          if (a < B1) {
+            T* out = my_part + a * part_row + g0 + pg;
+            const T tile_sum = (acc[k][0] + acc[k][1]) + (acc[k][2] + acc[k][3]);
+            *out = first_tile ? tile_sum : *out + tile_sum;
+          }
+        }
+      }
+      if (c == 0) {  // graw += xr[:, tile] xr[:, tile]', once per tile
+        for (int e = tid; e < B1 * B1; e += kThreads) {
+          const int a = e / B1;
+          const int b = e - a * B1;
+          T sum[4] = {T(0), T(0), T(0), T(0)};
+          for (int s4 = 0; s4 < kThreads; s4 += 4) {
+            const Quad x = *reinterpret_cast<const Quad*>(s_xr + a * kPitch + s4);
+            const Quad y = *reinterpret_cast<const Quad*>(s_xr + b * kPitch + s4);
+            sum[0] = sum[0] + x.x * y.x;
+            sum[1] = sum[1] + x.y * y.y;
+            sum[2] = sum[2] + x.z * y.z;
+            sum[3] = sum[3] + x.w * y.w;
+          }
+          T* out = my_part + a * part_row + G + b;
+          const T tile_sum = (sum[0] + sum[1]) + (sum[2] + sum[3]);
           *out = first_tile ? tile_sum : *out + tile_sum;
         }
       }
-    }
-    if (c == 0) {  // graw += xr[:, tile] xr[:, tile]', once per tile
-      for (int e = tid; e < B1 * B1; e += kThreads) {
-        const int a = e / B1;
-        const int b = e - a * B1;
-        float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int s4 = 0; s4 < kThreads; s4 += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(s_xr + a * kPitch + s4);
-          const float4 y = *reinterpret_cast<const float4*>(s_xr + b * kPitch + s4);
-          sum[0] = sum[0] + x.x * y.x;
-          sum[1] = sum[1] + x.y * y.y;
-          sum[2] = sum[2] + x.z * y.z;
-          sum[3] = sum[3] + x.w * y.w;
+    } else {
+      // The same sums on the FP64 tensor cores: 8 x 8 tiles of praw (and
+      // once per tile of graw), one warp a tile, each over the tile's sims.
+      const int warp = tid / kWarp, lane = tid % kWarp;
+      const int mt = (B1 + 7) / 8;
+      for (int t = warp; t < mt * (kChunk / 8); t += kThreads / kWarp) {
+        const int m0 = t / (kChunk / 8) * 8, n0 = t % (kChunk / 8) * 8;
+        T d[2];
+        tile_product<kPitch>(s_xr + m0 * kPitch, s_vc + n0 * kPitch, lane, d);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int a = m0 + lane / 4, gl = n0 + 2 * (lane % 4) + i;
+          if (a < B1 && gl < gcount) {
+            T* out = my_part + a * part_row + g0 + gl;
+            *out = first_tile ? d[i] : *out + d[i];
+          }
         }
-        float* out = my_part + a * part_row + G + b;
-        const float tile_sum = (sum[0] + sum[1]) + (sum[2] + sum[3]);
-        *out = first_tile ? tile_sum : *out + tile_sum;
+      }
+      if (c == 0) {
+        for (int t = warp; t < mt * mt; t += kThreads / kWarp) {
+          const int m0 = t / mt * 8, n0 = t % mt * 8;
+          T d[2];
+          tile_product<kPitch>(s_xr + m0 * kPitch, s_xr + n0 * kPitch, lane, d);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int a = m0 + lane / 4, b = n0 + 2 * (lane % 4) + i;
+            if (a < B1 && b < B1) {
+              T* out = my_part + a * part_row + G + b;
+              *out = first_tile ? d[i] : *out + d[i];
+            }
+          }
+        }
       }
     }
   }
 }
 
-using KernelFn = void (*)(Operands, BasisDesc);
+template <class T>
+using KernelFn = void (*)(Operands<T>, BasisDesc);
 
 // A fitted row (B weights, affine, price) is read as ceil((B + 2) / 4)
-// float4s, zero-padded: three for B <= 10, four for B <= 14, five beyond.
+// quads, zero-padded: three for B <= 10, four for B <= 14, five beyond.
 int quads_of(int num_basis) { return (num_basis + 2 + 3) / 4 < 3 ? 3 : (num_basis + 2 + 3) / 4; }
 
-KernelFn kernel_for(int num_basis) {
+template <class T>
+KernelFn<T> kernel_for(int num_basis) {
   switch (quads_of(num_basis)) {
-    case 3: return backward_update_kernel<3>;
-    case 4: return backward_update_kernel<4>;
-    default: return backward_update_kernel<5>;
+    case 3: return backward_update_kernel<T, 3>;
+    case 4: return backward_update_kernel<T, 4>;
+    default: return backward_update_kernel<T, 5>;
   }
 }
 
+template <class T>
 size_t smem_bytes(int num_decisions, int num_basis) {
-  return sizeof(float) *
-         (2 * (size_t)stage_floats(num_decisions * kChunk, quads_of(num_basis)) +
-          (size_t)(num_basis + 1 + kChunk) * kPitch);
+  constexpr int kChunk = K1Traits<T>::kChunk;
+  return sizeof(T) *
+         (2 * (size_t)stage_elems(num_decisions * kChunk, quads_of(num_basis)) +
+          (size_t)(num_basis + 1 + kChunk) * tile_pitch<T>());
 }
 
+template <class T>
 bool valid_shape(long long num_sims, int num_decisions, int num_basis, int num_factors) {
-  return num_sims >= 1 && num_sims < (1LL << 30) && num_basis >= 1 && num_basis <= kMaxBasis &&
-         num_factors >= 1 && num_factors <= kMaxFactors && num_decisions >= 1;
+  return num_sims >= 1 && num_sims < (1LL << 32) / (long long)sizeof(T) && num_basis >= 1 &&
+         num_basis <= kMaxBasis && num_factors >= 1 && num_factors <= kMaxFactors &&
+         num_decisions >= 1;
 }
 
-// Sets the kernel's dynamic shared memory and returns its persistent grid
-// (blocks per SM from the occupancy calculator x SMs, at most one per tile).
-cudaError_t persistent_grid(long long num_sims, int num_decisions, int num_basis,
-                            int* num_blocks) {
-  const KernelFn fn = kernel_for(num_basis);
-  const size_t smem = smem_bytes(num_decisions, num_basis);
-  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
-    return err;
+template <class T>
+int blocks_for(long long num_sims, int num_decisions, int num_basis) {
+  if (!valid_shape<T>(num_sims, num_decisions, num_basis, 1)) return -(int)cudaErrorInvalidValue;
+  int nblk = 0;
+  const cudaError_t err = persistent_grid(
+      reinterpret_cast<const void*>(kernel_for<T>(num_basis)), kThreads,
+      smem_bytes<T>(num_decisions, num_basis), (num_sims + kThreads - 1) / kThreads, &nblk);
+  return err == cudaSuccess ? nblk : -(int)err;
+}
+
+template <class T>
+int launch(const T* f_cur, const T* f_prev, const T* v_next, T* v_out, const T* table,
+           const T* vbar, const T* musd, const int* geom_j, const T* geom_w, const T* scal,
+           T* partials, long long num_sims, int num_grid, int num_decisions, int num_basis,
+           int num_factors, const int* spot_pow, const int* fac_pow, int num_blocks,
+           void* stream) {
+  if (!valid_shape<T>(num_sims, num_decisions, num_basis, num_factors) || num_grid < 2 ||
+      num_blocks < 1 || num_blocks > (num_sims + kThreads - 1) / kThreads) {
+    return (int)cudaErrorInvalidValue;
   }
-  const long long ntiles = (num_sims + kThreads - 1) / kThreads;
-  const long long grid = (long long)per_sm * sms;
-  *num_blocks = (int)(ntiles < grid ? ntiles : grid);
-  return cudaSuccess;
+  const BasisDesc bd = make_basis_desc(num_basis, num_factors, spot_pow, fac_pow);
+  const Operands<T> op = {f_cur,  f_prev, v_next, v_out,    table,
+                          vbar,   musd,   geom_j, geom_w,   scal,
+                          partials, num_sims, (unsigned)(sizeof(T) * num_sims), num_grid,
+                          num_decisions};
+  const void* fn = reinterpret_cast<const void*>(kernel_for<T>(num_basis));
+  const size_t smem = smem_bytes<T>(num_decisions, num_basis);
+  const cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {const_cast<Operands<T>*>(&op), const_cast<BasisDesc*>(&bd)};
+  return (int)cudaLaunchKernel(fn, dim3(num_blocks), dim3(kThreads), args, smem,
+                               (cudaStream_t)stream);
 }
 
 }  // namespace storage_kernels
@@ -449,10 +612,7 @@ using namespace storage_kernels;
 // The number of blocks (= partials) backward_update_launch takes for these
 // shapes on the current device, or minus a cudaError_t.
 extern "C" int backward_update_blocks(long long num_sims, int num_decisions, int num_basis) {
-  if (!valid_shape(num_sims, num_decisions, num_basis, 1)) return -(int)cudaErrorInvalidValue;
-  int nblk = 0;
-  const cudaError_t err = persistent_grid(num_sims, num_decisions, num_basis, &nblk);
-  return err == cudaSuccess ? nblk : -(int)err;
+  return blocks_for<float>(num_sims, num_decisions, num_basis);
 }
 
 // Launches backward_update_kernel on `stream` with `num_blocks` blocks (from
@@ -465,20 +625,23 @@ extern "C" int backward_update_launch(
     const float* geom_w, const float* scal, float* partials, long long num_sims, int num_grid,
     int num_decisions, int num_basis, int num_factors, const int* spot_pow, const int* fac_pow,
     int num_blocks, void* stream) {
-  if (!valid_shape(num_sims, num_decisions, num_basis, num_factors) || num_grid < 2 ||
-      num_blocks < 1 || num_blocks > (num_sims + kThreads - 1) / kThreads) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const BasisDesc bd = make_basis_desc(num_basis, num_factors, spot_pow, fac_pow);
-  const Operands op = {f_cur, f_prev, v_next, v_out, table, vbar, musd, geom_j, geom_w, scal,
-                       partials, num_sims, (unsigned)(4 * num_sims), num_grid, num_decisions};
-  const KernelFn fn = kernel_for(num_basis);
-  const size_t smem = smem_bytes(num_decisions, num_basis);
-  const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {const_cast<Operands*>(&op), const_cast<BasisDesc*>(&bd)};
-  return (int)cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(num_blocks),
-                               dim3(kThreads), args, smem, (cudaStream_t)stream);
+  return launch<float>(f_cur, f_prev, v_next, v_out, table, vbar, musd, geom_j, geom_w, scal,
+                       partials, num_sims, num_grid, num_decisions, num_basis, num_factors,
+                       spot_pow, fac_pow, num_blocks, stream);
+}
+
+// The same two entry points in float64: every floating-point operand is double.
+extern "C" int backward_update_f64_blocks(long long num_sims, int num_decisions, int num_basis) {
+  return blocks_for<double>(num_sims, num_decisions, num_basis);
+}
+
+extern "C" int backward_update_f64_launch(
+    const double* f_cur, const double* f_prev, const double* v_next, double* v_out,
+    const double* table, const double* vbar, const double* musd, const int* geom_j,
+    const double* geom_w, const double* scal, double* partials, long long num_sims,
+    int num_grid, int num_decisions, int num_basis, int num_factors, const int* spot_pow,
+    const int* fac_pow, int num_blocks, void* stream) {
+  return launch<double>(f_cur, f_prev, v_next, v_out, table, vbar, musd, geom_j, geom_w, scal,
+                        partials, num_sims, num_grid, num_decisions, num_basis, num_factors,
+                        spot_pow, fac_pow, num_blocks, stream);
 }

@@ -232,11 +232,8 @@ __device__ __forceinline__ double normal_draw<double>(const uint32_t (&ks)[3], u
   return normal_from_words(o1, o2);
 }
 
-// Products and sums of the OU update, rounded on their own in either type.
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+// Products and sums of the OU update are rounded on their own in either type
+// (mul_rn / add_rn, storage_kernels.cuh).
 
 // 0 - y: the antithetic partner's state. The plain version computes the
 // partner from -z on its own, so an exactly zero state (every sim's at step

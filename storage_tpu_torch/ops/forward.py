@@ -2,11 +2,12 @@
 PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas_forward.py``.  The kernel
-(``csrc/forward_sim.cu``; in float64 ``csrc/forward_sim_f64.cu``) replaces
-``_forward_kernel`` there and computes the XLA math of ``_forward_step_core``
-(``engines/lsmc.py``) with the regression continuation, in the operands'
-dtype with exact two-point interpolation,
-for any ``extra_decisions`` and ratchet interpolation (LINEAR, STEP, POLY).
+(``csrc/forward_sim.cu``, one source templated on the element type: a
+float32 and a float64 instantiation) replaces ``_forward_kernel`` there and
+computes the XLA math of ``_forward_step_core`` (``engines/lsmc.py``) with
+the regression continuation, in the operands' dtype with exact two-point
+interpolation, for any ``extra_decisions`` and ratchet interpolation
+(LINEAR, STEP, POLY).
 Outputs are the per-step sums the engine needs for means, deltas and
 trigger prices, plus each sim's final inventory and PV; given a ``panels``
 tensor ``[n, 6, S]`` it also writes the per-sim panel fields into it (the
@@ -107,7 +108,7 @@ def forward_sim_reference(
     return torch.stack(sums), torch.stack(xsums), inv, pv
 
 
-TILE_SIMS = 256  # sims of one tile of the kernel's persistent grid (its ``kTile``)
+TILE_SIMS = 256  # sims of one tile of the kernel's persistent grid (``tile_sims``, both dtypes)
 
 
 def grid_blocks(lib, device, spec: BasisSpec, *shape, dtype=torch.float32) -> int:
@@ -126,9 +127,10 @@ def grid_blocks(lib, device, spec: BasisSpec, *shape, dtype=torch.float32) -> in
 
 def pack_records(tables, mus, sds, pillars, scalars, pitch: int) -> torch.Tensor:
     """The kernel's per-step records ``[n, RL]`` in the tables' dtype: the
-    table ``[G, B+1]`` with rows zero-padded to ``pitch`` elements (float32:
-    whole float4s; float64: B+1 doubles; the kernel's ``forward_sim_row_pitch``
-    or ``forward_sim_f64_row_pitch`` says how many for a basis), then the
+    table ``[G, B+1]`` with rows zero-padded to ``pitch`` elements (whole
+    quads of four, read as one float4 or two double2; the kernel's
+    ``forward_sim_row_pitch`` or ``forward_sim_f64_row_pitch`` says how many
+    for a basis, the same in both dtypes), then the
     ``(mu_b, sd_b)`` pairs, the pillars and the scalars, zero-padded to a
     multiple of 4 elements (the launcher checks RL against its own count)."""
     n, B1, G = tables.shape

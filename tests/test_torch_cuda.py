@@ -123,10 +123,13 @@ def test_backward_update_shapes_match_plain(cuda, spec, S, G, D, local):
     _assert_backward_agrees(args, spec, out)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 @pytest.mark.parametrize("D", [3, 5])
-def test_backward_update_is_deterministic(cuda, D):
-    """Two launches on the same inputs give bit-identical outputs."""
-    args = _backward_inputs(SPEC_3F, 300_004, 100, D, seed=7, device=cuda, local=True)
+def test_backward_update_is_deterministic(cuda, D, dtype):
+    """Two launches on the same inputs give bit-identical outputs, in either
+    instantiation."""
+    args = [a.to(dtype) if a.is_floating_point() else a
+            for a in _backward_inputs(SPEC_3F, 300_004, 100, D, seed=7, device=cuda, local=True)]
     first = backward.backward_update(*args, spec=SPEC_3F)
     second = backward.backward_update(*args, spec=SPEC_3F)
     torch.cuda.synchronize()
@@ -270,16 +273,18 @@ def test_forward_sim_basis_widths_match_plain(cuda, spec):
     assert ((s_k - s_r).abs().max() / s_r.abs().max()).item() <= 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
 @pytest.mark.parametrize("panels", [False, True], ids=["sums", "panels"])
-def test_forward_sim_is_deterministic(cuda, panels):
+def test_forward_sim_is_deterministic(cuda, panels, dtype):
     """Two launches on the same inputs give bit-identical outputs (several
-    tiles per block of the persistent grid, so partials accumulate in place)."""
+    tiles per block of the persistent grid, so partials accumulate in place),
+    in either instantiation."""
     S, n, G = 600_011, 9, 23
-    args = _forward_inputs(SPEC_3F, S, n, G, 4, seed=11, device=cuda)
+    args = [a.to(dtype) for a in _forward_inputs(SPEC_3F, S, n, G, 4, seed=11, device=cuda)]
     kw = dict(spec=SPEC_3F, interp_kind=0, num_grid=G)
     outs = []
     for _ in range(2):
-        p = torch.empty((n, 6, S), device=cuda) if panels else None
+        p = torch.empty((n, 6, S), device=cuda, dtype=dtype) if panels else None
         outs.append(forward.forward_sim(*args, **kw, panels=p) + ((p,) if panels else ()))
     torch.cuda.synchronize()
     for a, b in zip(*outs):
@@ -398,8 +403,8 @@ def test_launch_refused_raises(cuda):
 
 
 # --------------------------------------------------------------------------- #
-# The float64 instantiations (backward_update_f64.cu, forward_sim_f64.cu and  #
-# path_sim.cu's float64 mode) against their plain versions in float64.        #
+# The float64 instantiations of the three kernels (one source each, templated #
+# on the element type) against their plain versions in float64.               #
 # --------------------------------------------------------------------------- #
 
 
@@ -410,11 +415,15 @@ def _f64(args):
 @pytest.mark.parametrize("spec,S,G,D,local", [
     (SPEC_3F, 1000, 17, 3, False), (SPEC_SMALL, 4097, 40, 5, False),
     (SPEC_3F, 2048, 700, 5, True), (SPEC_3F, 300_004, 100, 3, True), (SPEC_16, 3000, 60, 3, True),
-], ids=["B10-tail", "B3-D5", "G700-D5", "multi-pass", "B16"])
+    (SPEC_3F, 65_537, 700, 5, True), (SPEC_13, 2000, 50, 5, True),
+], ids=["B10-tail", "B3-D5", "G700-D5", "multi-pass", "B16", "G700-D5-ragged", "B13-D5"])
 def test_backward_update_f64_matches_plain(cuda, spec, S, G, D, local):
-    """K1's float64 kernel: V entries within 1e-12 of max|V| but for near-tie
-    flips of the fitted totals (an FMA chain against torch's matrix
-    product), at most 1e-6 of them; partials within 1e-12."""
+    """K1's float64 instantiation: V entries within 1e-12 of max|V| but for
+    near-tie flips of the fitted totals (an FMA chain against torch's matrix
+    product), at most 1e-6 of them; partials within 1e-12. Shapes as the
+    float32 kernel's: G = 700 at D = 5 (its shared memory does not grow with
+    G) at a sim count that is no multiple of the 128-sim tile, fitted rows of
+    three, four and five quads."""
     args = _f64(_backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=local))
     reset_launch_counts()
     v_k, graw_k, praw_k = backward.backward_update(*args, spec=spec)
@@ -432,23 +441,26 @@ def test_backward_update_f64_matches_plain(cuda, spec, S, G, D, local):
 
 
 _F64_FORWARD_CASES = [
-    (SPEC_3F, 3001, 30, 4, 0, 0, True), (SPEC_3F, 3001, 30, 4, 1, 0, False),
-    (SPEC_3F, 3001, 30, 1, 0, 0, False), (SPEC_3F, 1000, 30, 4, 0, 2, True),
-    (SPEC_3F, 2048, 30, 4, INTERP_POLY, 1, True), (SPEC_3F, 515, 1, 4, 0, 0, True),
-    (SPEC_3F, 811_011, 5, 4, 0, 0, True), (SPEC_16, 2049, 12, 4, 0, 0, False),
-    (SPEC_CUBIC, 2049, 12, 4, 0, 0, False),
+    (SPEC_3F, 3001, 30, 4, 0, 0, True, 23), (SPEC_3F, 3001, 30, 4, 1, 0, False, 23),
+    (SPEC_3F, 3001, 30, 1, 0, 0, False, 23), (SPEC_3F, 1000, 30, 4, 0, 2, True, 23),
+    (SPEC_3F, 2048, 30, 4, INTERP_POLY, 1, True, 23), (SPEC_3F, 515, 1, 4, 0, 0, True, 23),
+    (SPEC_3F, 811_011, 5, 4, 0, 0, True, 23), (SPEC_16, 2049, 12, 4, 0, 0, False, 23),
+    (SPEC_CUBIC, 2049, 12, 4, 0, 0, False, 23), (SPEC_3F, 65_537, 7, 4, 0, 1, True, 700),
+    (SPEC_13, 2049, 12, 4, 0, 0, False, 23), (SPEC_SMALL, 300, 9, 4, 0, 0, True, 23),
 ]
 
 
-@pytest.mark.parametrize("spec,S,n,P,interp_kind,extra,panels", _F64_FORWARD_CASES,
+@pytest.mark.parametrize("spec,S,n,P,interp_kind,extra,panels,G", _F64_FORWARD_CASES,
                          ids=["linear-panels", "step", "constant", "D7-panels", "poly-padded",
-                              "one-step", "tiles-per-block", "B16", "cubic"])
-def test_forward_sim_f64_matches_plain(cuda, spec, S, n, P, interp_kind, extra, panels):
-    """K2's float64 kernel rounds every step as the plain version's torch
-    ops do: the same decisions, so every per-sim value and panel entry
+                              "one-step", "tiles-per-block", "B16", "cubic", "G700-D5-ragged",
+                              "B13", "B3-below-tile"])
+def test_forward_sim_f64_matches_plain(cuda, spec, S, n, P, interp_kind, extra, panels, G):
+    """K2's float64 instantiation rounds every step as the plain version's
+    torch ops do: the same decisions, so every per-sim value and panel entry
     equals the plain version's (to 1e-12 of its field's max) and the sums
-    agree to 1e-12 (their order differs)."""
-    G = 23
+    agree to 1e-12 (their order differs). Also at G = 700, D = 5 and a sim
+    count that is no multiple of the tile, and with table rows of one, four
+    and five quads."""
     args = _f64(_forward_inputs(spec, S, n, G, P, seed=S + n + extra, device=cuda))
     if interp_kind == INTERP_POLY:
         args[5] = _poly_pillars(n).double().to(cuda)

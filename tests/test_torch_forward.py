@@ -33,7 +33,7 @@ from storage_tpu.ops.regression import basis_spec  # noqa: E402
 from storage_tpu.utils.basis import THREE_FACTOR_SEASONAL_ALIASES, as_monomials  # noqa: E402
 import storage_tpu_torch.engines.lsmc as tl  # noqa: E402
 from storage_tpu_torch.interop import context_from_numpy, lsmc_policy_from_numpy  # noqa: E402
-from storage_tpu_torch.ops.forward import pack_records  # noqa: E402
+from storage_tpu_torch.ops.forward import forward_sim_reference, pack_records  # noqa: E402
 from storage_tpu_torch.ops.regression import BasisSpec  # noqa: E402
 
 torch.set_num_threads(2)
@@ -173,9 +173,11 @@ def test_pack_records_layout(B, F, P, C):
 
 @pytest.mark.parametrize("B", [3, 10, 16])
 def test_pack_records_layout_float64(B):
-    """The float64 forward kernel's records: table rows of B+1 doubles (its
-    ``forward_sim_f64_row_pitch``, no padding), then the (mu, sd) pairs,
-    pillars and scalars, zero-padded to a multiple of 4, all float64."""
+    """The float64 forward kernel's records: table rows padded to the pitch
+    its ``forward_sim_f64_row_pitch`` names, the float32 one (12 doubles up
+    to B = 11, 20 beyond: whole quads of two double2 reads), then the
+    (mu, sd) pairs, pillars and scalars, zero-padded to a multiple of 4, all
+    float64."""
     n, G, P, C, F = 3, 7, 4, 3, 3
     g = torch.Generator().manual_seed(B)
 
@@ -184,8 +186,63 @@ def test_pack_records_layout_float64(B):
 
     tables, mus, sds, pillars, scalars = (r(n, B + 1, G), r(n, B), r(n, B), r(n, P, C),
                                           r(n, 11 + F))
-    rec = pack_records(tables, mus, sds, pillars, scalars, B + 1)
-    used = G * (B + 1) + 2 * B + P * C + 11 + F
+    pitch = 12 if B + 1 <= 12 else 20
+    rec = pack_records(tables, mus, sds, pillars, scalars, pitch)
+    used = G * pitch + 2 * B + P * C + 11 + F
     assert rec.dtype == torch.float64 and rec.shape == (n, -(-used // 4) * 4)
-    assert torch.equal(rec[:, :G * (B + 1)].reshape(n, G, B + 1), tables.transpose(1, 2))
+    rows = rec[:, :G * pitch].reshape(n, G, pitch)
+    assert torch.equal(rows[:, :, :B + 1], tables.transpose(1, 2))
+    assert not rows[:, :, B + 1:].any()
     assert torch.equal(rec[:, used - 11 - F:used], scalars) and not rec[:, used:].any()
+
+
+def _read_records(rec, G, B, P, C, F, pitch):
+    """The operands the forward kernel reads from its records: the first
+    B + 1 elements of each table row, the (mu, sd) pairs, the pillars and
+    the scalars, each at its offset."""
+    n = rec.shape[0]
+    tables = rec[:, :G * pitch].reshape(n, G, pitch)[:, :, :B + 1].transpose(1, 2)
+    off = G * pitch
+    musd = rec[:, off:off + 2 * B].reshape(n, B, 2)
+    off += 2 * B
+    pillars = rec[:, off:off + P * C].reshape(n, P, C)
+    off += P * C
+    scalars = rec[:, off:off + 11 + F]
+    return [t.contiguous() for t in (tables, musd[..., 0], musd[..., 1], pillars, scalars)]
+
+
+@pytest.mark.parametrize("B", [3, 10, 16])
+def test_pack_records_float64_read_by_the_plain_version(B):
+    """float64 records at the kernel's pitch (rows padded to whole quads),
+    read back as the kernel reads them, give the plain version the operands
+    they were packed from: its result equals, bit for bit, the one from the
+    unpadded rows of B + 1 doubles the float64 kernel read before, and the
+    one from the operands themselves."""
+    n, G, P, C, F, S = 4, 9, 4, 3, 3, 256
+    rng = np.random.default_rng(B)
+    spec = BasisSpec(tuple(b % 3 for b in range(B)),
+                     tuple(((b // 3) % 2, (b // 6) % 2, b % 2) for b in range(B)))
+    pil_inv = np.linspace(0.0, 7000.0, P)
+    pillars = np.stack([np.stack([pil_inv, -150.0 - 0.02 * pil_inv, 250.0 - 0.015 * pil_inv],
+                                 1)] * n)
+    scalars = np.zeros((n, 11 + F))
+    scalars[:, 1] = np.linspace(2000.0, 7000.0, n)  # SC_HI
+    scalars[:, 2:10] = [1e-4, 0.01, 0.025, 0.01, 0.005, 0.0, 0.99, 0.99]
+    scalars[:, 10] = 2.7
+    scalars[:, 11:] = rng.uniform(0.0, 0.3, (n, F))
+    tables = rng.normal(0.0, 30.0, (n, B + 1, G))
+    tables[:, B, :] += np.linspace(0.0, 20_000.0, G)
+    ops = [torch.tensor(a, dtype=torch.float64) for a in (
+        tables, rng.normal(0.0, 0.3, (n, B)), rng.uniform(0.5, 1.5, (n, B)), pillars, scalars)]
+    factors = torch.tensor(rng.normal(0.0, 0.5, (n, F, S)))
+    inv0 = torch.full((S,), 1500.0, dtype=torch.float64)
+
+    def run(operands):
+        return forward_sim_reference(factors, inv0, *operands, spec, 0, G)
+
+    want = run(ops)
+    for pitch in (B + 1, 12 if B + 1 <= 12 else 20):
+        read = _read_records(pack_records(*ops, pitch), G, B, P, C, F, pitch)
+        assert all(torch.equal(a, b) for a, b in zip(read, ops))
+        for a, b in zip(run(read), want):
+            assert torch.equal(a, b)

@@ -1,52 +1,71 @@
 #!/usr/bin/env python3
-"""Time the forward kernel K2, the path kernel K3 and the whole valuation on
-one GPU against what the main path ran before them, in turns in one
-process, then trace one warm valuation.
+"""Time the kernels on one GPU against what the main path ran before them,
+in turns in one process, compare their machine code, and trace the main path.
 
     python3 tools/kernel_turns.py [--parent DIR] [--variant NAME=DIR ...]
                                   [--no-wall] [--no-trace] [--sass]
-                                  [--out chiprun_out/kernel_turns.json]
-    python3 tools/kernel_turns.py --hourly [--out chiprun_out/hourly_trace.json]
+    python3 tools/kernel_turns.py --f64 [--parent DIR] [--variant NAME=DIR ...]
+                                  [--no-wall] [--no-trace]
+    python3 tools/kernel_turns.py --flips [--parent DIR]
+    python3 tools/kernel_turns.py --hourly
+    (each with [--out FILE]; default chiprun_out/<mode>.json)
 
 DIR (default ``storage_tpu_torch/_build/parent``, which git ignores) holds an
 earlier commit's sources, written there with
 ``git show <commit>:storage_tpu_torch/ops/csrc/<name> > DIR/<name>``:
-``forward_sim.cu`` and ``storage_kernels.cuh`` for K2, ``path_sim.cu`` and
-``storage_kernels.cuh`` for K3; either may be absent. The parent K2 is built
-with ``csrc.compile_library`` and called through the C interface that kernel
-had before its redesign (one thread per sim, 256-sim blocks, one partial per
-block and step). The parent K3 is called through the float32
-``path_sim_launch`` with an entering state, a first step and a checkpoint
-stride, which the current source keeps. The plain PyTorch path simulation,
-what the main path ran before K3 existed, is timed beside them.
-``--variant NAME=DIR`` (repeatable) builds another ``forward_sim.cu`` with
-the current C interface from DIR (an edited copy of the current sources: one
-constant changed, such as ``kR`` and ``kFwdMinBlocks`` for another number of
-sims per thread, or one part taken out) and times it beside the others.
+``backward_update.cu``, ``forward_sim.cu``, ``path_sim.cu`` and
+``storage_kernels.cuh`` (the float32 kernels, any of them may be absent),
+and for ``--f64`` the separate float64 sources the port had before its
+kernels were templated on the element type (``backward_update_f64.cu``,
+``forward_sim_f64.cu``, ``storage_kernels_f64.cuh``). Each is built with
+``csrc.compile_library`` and called through the current C interface: its
+entry points stand in for the package's own, the others stay the
+package's. A parent ``forward_sim.cu`` that still divides its grid step
+(``span / (float)(G - 1)``) is built and compared with the product by the
+reciprocal that torch computes (``GSTEP_REPAIR``), except under ``--flips``,
+which counts the flips of both. ``--variant NAME=DIR`` (repeatable) builds
+an edited copy of the current ``backward_update.cu`` / ``forward_sim.cu``
+and ``storage_kernels.cuh`` from DIR (one constant changed, such as K2's
+``kR`` or K1's resident blocks, or one part taken out) and times it beside
+the others.
 
+Default (float32):
 1. build   — the current library, the parent and the variants, together.
 2. capture — ``chip_smoke.phase_capture``: one 1M-path valuation of the
    headline case recording the forward launch and the path-set simulations.
 3. K2      — at D = 3, with per-sim panels and at D = 5: every version in
    turn, then in reverse order; 5 launches each, CUDA events, wrappers
-   included. Versions: parent, current, and the variants. Outputs against
-   the current kernel's.
+   included; outputs against the current kernel's.
 4. K3      — at ``[341, 3, 1M]``: the plain version, the kernel and the parent
    K3 in turn, then in reverse order; the parent's paths against the
    kernel's, bit for bit.
-5. wall    — the headline valuation at 1M paths as it ran before (parent K2,
-   plain path simulation) and now, in the same order; wall and phases.
+5. wall    — the headline valuation at 1M paths with the parent's kernels and
+   with the current ones, in turns; wall and phases.
 6. trace   — ``torch.profiler`` over one more (warm) valuation: the top
    device operations, K1's, K2's and K3's device totals, the other kernels
    launched between the first and the last K1 launch (the backward
    induction's per-step glue), and the device's idle share of the traced wall.
+7. ``--sass`` — instruction counts of the current K2 and K3 (``cuobjdump
+   -sass``: total, loops, commonest opcodes), and every float32 kernel of the
+   parent's K1, K2 and K3 sources against the current float32 instantiation
+   of the same name, instruction line by instruction line (raw dumps
+   ``DIR/parent_<source>.sass`` and ``DIR/current_<source>.sass``). The tool
+   exits 1 if a line differs or the parent's K3 paths differ.
 
-``--sass`` adds what the compiler made of the two kernels (``cuobjdump
--sass`` of the current library): instructions in all, the loops (backward
-branches) with their sizes, and the commonest opcodes. With a parent K3 it
-also compiles both ``path_sim.cu`` to cubins and compares their float32
-kernels instruction by instruction (raw dumps ``DIR/parent.sass`` and
-``DIR/current.sass``).
+``--f64``: f64_main's configuration (the headline case in float64 at 1M
+paths and the default path budget, streamed) run once recording its K1
+launch 170, the forward launch of its middle 64-step span and of its 20-step
+tail; K1 on launch 170 and K2 on both launches timed in turns (parent,
+current, variants, then in reverse order; 20 and 5 launches each) with
+their outputs against the current kernel's; the f64_main wall with the
+parent's float64 kernels and with the current ones, in turns; then a trace
+of one warm f64_main with the summary of step 6.
+
+``--flips``: the near-tie flips of the float32 K2 against its plain version
+(``chip_smoke.forward_flips``) with the parent's ``forward_sim.cu`` as it is
+and with the current one, on chip_smoke's recorded forward launch at D = 3,
+with panels, at D = 5 and with POLY ratchets, and on the hourly case's
+middle span and tail launch (recorded from a warm-up run, seed 12).
 
 ``--hourly`` does none of the above: it builds the library, runs the streamed
 hourly case of ``chip_smoke.value_hourly`` (17,520 steps x 250,000 antithetic
@@ -75,116 +94,87 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (the repo root's smoke script: capture and timing helpers)
 
 REPS = 5
+CSRC = ROOT / "storage_tpu_torch" / "ops" / "csrc"
+# The float32 K2's grid step as it divided, and as torch computes it.
+GSTEP_DIVIDED = "span / (float)(G - 1)"
+GSTEP_REPAIR = "__fmul_rn(span, 1.0f / (float)(G - 1))"
 
 
-def build_parent(parent: Path):
-    """Build the earlier forward kernel from ``parent``; None if absent."""
-    from storage_tpu_torch.ops import csrc
+class Overlay:
+    """A kernel library whose entry points come from ``lib`` where it has
+    them (declared like the package's of the same name), else from ``base``."""
 
-    if not (parent / "forward_sim.cu").exists():
-        return None
-    out = parent / "libparent_forward.so"
-    csrc.compile_library(parent, ("forward_sim.cu",), out)
-    lib = ctypes.CDLL(str(out))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.forward_sim_launch.argtypes = [p] * 13 + [ll, i, i, i, i, i, i, i, i, p, p, i, p]
-    lib.forward_sim_launch.restype = i
-    return lib
+    def __init__(self, lib, base):
+        self._lib, self._base = lib, base
 
+    def has(self, name):
+        """Whether ``lib`` itself has the entry point ``name``."""
+        return hasattr(self._lib, name)
 
-def build_parent_path_sim(parent: Path):
-    """The earlier path kernel's float32 launcher from ``parent``; None if
-    absent."""
-    from storage_tpu_torch.ops import csrc
-
-    if not (parent / "path_sim.cu").exists():
-        return None
-    out = parent / "libparent_path_sim.so"
-    csrc.compile_library(parent, ("path_sim.cu",), out)
-    lib = ctypes.CDLL(str(out))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.path_sim_launch.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
-    lib.path_sim_launch.restype = i
-    return lib.path_sim_launch
-
-
-def parent_paths(launcher):
-    """One path set from the earlier path kernel, called like
-    ``_simulate_factor_paths_cuda`` (float32, one launch)."""
-    import torch
-    from storage_tpu_torch.models import simulation
-    from storage_tpu_torch.ops.csrc import check_launch
-
-    def run(coeffs, num_sims, key, antithetic, device):
-        tables = simulation._path_kernel_tables(coeffs, key, device)
-        n, F = coeffs.decay.shape
-        out = torch.empty((n, F, num_sims), device=device)
-        draw = (num_sims + 1) // 2 if antithetic else num_sims
-        check_launch("path_sim (parent)", launcher(
-            tables.keys.data_ptr(), tables.coef.data_ptr(), None, out.data_ptr(), num_sims,
-            draw, 0, n, F, 0, torch.cuda.current_stream(device).cuda_stream))
-        return out
-    return run
-
-
-def parent_forward(lib):
-    """The earlier wrapper on library ``lib``: one launch, one partial per
-    256-sim block and step, summed; called like ``forward_sim``."""
-    import torch
-    from storage_tpu_torch.ops.csrc import basis_arrays
-    from storage_tpu_torch.ops.decisions import decision_weights
-
-    def run(factors, inv0, tables, mus, sds, pillars, scalars, spec, interp_kind, num_grid,
-            extra_decisions=0, panels=None):
-        n, F, S = factors.shape
-        B, (P, C), dev = spec.num_basis, pillars.shape[1:], factors.device
-        weights = torch.tensor(decision_weights(extra_decisions), dtype=torch.float32, device=dev)
-        tables_gb = tables.transpose(1, 2).contiguous()
-        nblk = -(-S // 256)
-        sums_part = torch.empty((nblk, n, 7), device=dev)
-        xsums_part = torch.empty((nblk, n, B + 1), device=dev)
-        inv_out, pv_out = torch.empty((S,), device=dev), torch.empty((S,), device=dev)
-        spot_pow, fac_pow = basis_arrays(spec)
-        err = lib.forward_sim_launch(
-            factors.data_ptr(), inv0.data_ptr(), tables_gb.data_ptr(), mus.data_ptr(),
-            sds.data_ptr(), pillars.data_ptr(), scalars.data_ptr(), weights.data_ptr(),
-            sums_part.data_ptr(), xsums_part.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
-            None if panels is None else panels.data_ptr(), S, n, num_grid, P, C,
-            int(interp_kind), weights.shape[1], B, F, spot_pow, fac_pow, 256,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"parent launch failed: cudaError {err}")
-        return sums_part.sum(dim=0), xsums_part.sum(dim=0), inv_out, pv_out
-    return run
-
-
-def build_variant(src: Path):
-    """Build ``forward_sim.cu`` from ``src`` (current C interface)."""
-    from storage_tpu_torch.ops import csrc
-
-    out = src / "libvariant_forward.so"
-    csrc.compile_library(src, ("forward_sim.cu",), out, verbose=True)
-    lib = ctypes.CDLL(str(out))
-    cur = csrc.kernels()
-    for name in ("forward_sim_launch", "forward_sim_blocks", "forward_sim_row_pitch",
-                 "storage_kernels_error_string"):
-        getattr(lib, name).argtypes = getattr(cur, name).argtypes
-        getattr(lib, name).restype = getattr(cur, name).restype
-    return lib
-
-
-def on_library(lib):
-    """``_forward_sim_cuda`` launching from ``lib`` instead of the package's
-    library."""
-    from storage_tpu_torch.ops import csrc, forward
-
-    def run(*args, **kw):
-        saved = csrc._lib
-        csrc._lib = lib
+    def __getattr__(self, name):
         try:
-            return forward._forward_sim_cuda(*args, **kw)
-        finally:
-            csrc._lib = saved
+            fn = getattr(self._lib, name)
+        except AttributeError:
+            return getattr(self._base, name)
+        own = getattr(self._base, name, None)
+        if own is not None:
+            fn.argtypes, fn.restype = own.argtypes, own.restype
+        return fn
+
+
+def build_library(src_dir: Path, sources, name: str, verbose=False):
+    """``sources`` of ``src_dir`` that exist, compiled into one library over
+    the package's (an :class:`Overlay`); None if none exists."""
+    from storage_tpu_torch.ops import csrc
+
+    present = [s for s in sources if (src_dir / s).exists()]
+    if not present:
+        return None
+    out = src_dir / f"lib{name}.so"
+    csrc.compile_library(src_dir, present, out, verbose=verbose)
+    return Overlay(ctypes.CDLL(str(out)), csrc.kernels())
+
+
+def repaired_forward(parent: Path) -> Path:
+    """A directory holding the parent's K2 with its grid step rounded as
+    torch rounds it (the parent itself if it needs no repair)."""
+    src = (parent / "forward_sim.cu").read_text()
+    if GSTEP_DIVIDED not in src:
+        return parent
+    out = parent / "gstep_repaired"
+    out.mkdir(exist_ok=True)
+    (out / "forward_sim.cu").write_text(src.replace(GSTEP_DIVIDED, GSTEP_REPAIR))
+    (out / "storage_kernels.cuh").write_text((parent / "storage_kernels.cuh").read_text())
+    return out
+
+
+class library:
+    """Every kernel launch inside the block goes to ``lib`` (None: the
+    package's own); K1's cached grids are dropped on the way in and out."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from storage_tpu_torch.ops import backward, csrc
+
+        self.saved = csrc.kernels()
+        backward._GRIDS.clear()
+        if self.lib is not None:
+            csrc._lib = self.lib
+
+    def __exit__(self, *exc):
+        from storage_tpu_torch.ops import backward, csrc
+
+        csrc._lib = self.saved
+        backward._GRIDS.clear()
+
+
+def on_library(lib, fn):
+    """``fn`` (a kernel wrapper) launching from ``lib``."""
+    def run(*args, **kw):
+        with library(lib):
+            return fn(*args, **kw)
     return run
 
 
@@ -207,9 +197,28 @@ def turns(label, versions, reference, call, reps=REPS):
         times[name].append(chip_smoke.cuda_ms(lambda: call(versions[name]), reps))
     for name in versions:
         print(f"[turns {label}] {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms "
-              f"(mean {sum(times[name]) / 2:.4f}); sums, xsums rel against {reference}: "
+              f"(mean {sum(times[name]) / 2:.4f}); first outputs rel against {reference}: "
               + ", ".join(f"{e:.2e}" for e in agreement[name]))
     return dict(order=order, ms=times, agreement=agreement)
+
+
+def parent_paths(lib):
+    """One path set from the parent's path kernel, called like
+    ``_simulate_factor_paths_cuda`` (float32, one launch)."""
+    import torch
+    from storage_tpu_torch.models import simulation
+    from storage_tpu_torch.ops.csrc import check_launch
+
+    def run(coeffs, num_sims, key, antithetic, device):
+        tables = simulation._path_kernel_tables(coeffs, key, device)
+        n, F = coeffs.decay.shape
+        out = torch.empty((n, F, num_sims), device=device)
+        draw = (num_sims + 1) // 2 if antithetic else num_sims
+        check_launch("path_sim (parent)", lib.path_sim_launch(
+            tables.keys.data_ptr(), tables.coef.data_ptr(), None, out.data_ptr(), num_sims,
+            draw, 0, n, F, 0, torch.cuda.current_stream(device).cuda_stream))
+        return out
+    return run
 
 
 def k3_turns(captured, parent=None):
@@ -240,60 +249,58 @@ def k3_turns(captured, parent=None):
     return dict(out, order=order, ms=times)
 
 
-def wall_turns(parent_fwd):
-    """The headline valuation as it ran before (parent K2, plain path
-    simulation) and now, in turns (each version, then the reverse order)."""
+def wall_turns(libs, value, label="wall"):
+    """``value(profile_sink=...)`` with each library of ``libs`` (name ->
+    library, None for the package's), in turns (each, then the reverse)."""
     import torch
-    import storage_tpu_torch as tt
-    from storage_tpu_torch import valuation
-    from storage_tpu_torch.engines import lsmc
-    from storage_tpu_torch.models import simulation
 
-    def plain_sim(coeffs, num_sims, antithetic=False, key=None, device=None):
-        return simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic,
-                                                          device)
-
-    real = (lsmc.forward_sim, valuation.simulate_factor_paths)
-    versions = {"parent": (parent_fwd, plain_sim), "current": real}
-    order = list(versions) + list(reversed(versions))
+    order = list(libs) + list(reversed(libs))
     runs = []
-    try:
-        for name in order:
-            phases = {}
+    for name in order:
+        phases = {}
 
-            def sink(sw, phases=phases):
-                phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
+        def sink(sw, phases=phases):
+            phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
 
-            lsmc.forward_sim, valuation.simulate_factor_paths = versions[name]
+        with library(libs[name]):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            res = chip_smoke.value_case(tt, chip_smoke.NUM_SIMS, chip_smoke.SEED, device="cuda",
-                                        profile_sink=sink)
+            res = value(profile_sink=sink)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            runs.append(dict(version=name, wall_s=wall, npv=res.npv, phases_s=phases,
-                             peak_gib=peak))
-            print(f"[wall] {name}: {wall:.3f} s, NPV {res.npv:.4f}, peak {peak:.3f} GiB, phases "
-                  + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
-    finally:
-        lsmc.forward_sim, valuation.simulate_factor_paths = real
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs.append(dict(version=name, wall_s=wall, npv=res.npv, phases_s=phases,
+                         peak_gib=peak))
+        print(f"[{label}] {name}: {wall:.3f} s, NPV {res.npv:.6f}, peak {peak:.3f} GiB, phases "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
     return runs
 
 
-def trace(value=None, host_activity=True):
-    """torch.profiler over one warm valuation: ``value(profile_sink=...)``,
-    by default the headline case."""
+def value_main(**kw):
+    """The headline case at 1M paths (float32, materialised)."""
+    import storage_tpu_torch as tt
+
+    return chip_smoke.value_case(tt, chip_smoke.NUM_SIMS, chip_smoke.SEED, device="cuda", **kw)
+
+
+def value_f64(**kw):
+    """f64_main's configuration: the headline case at 1M paths in float64 at
+    the default path budget (streamed)."""
     import torch
     import storage_tpu_torch as tt
+
+    with chip_smoke._path_budget(chip_smoke.DEFAULT_PATH_BUDGET):
+        return chip_smoke.value_case(tt, chip_smoke.NUM_SIMS, chip_smoke.SEED, device="cuda",
+                                     dtype=torch.float64, **kw)
+
+
+def trace(value=value_main, host_activity=True):
+    """torch.profiler over one warm valuation: ``value(profile_sink=...)``."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if value is None:
-        def value(**kw):
-            return chip_smoke.value_case(tt, chip_smoke.NUM_SIMS, chip_smoke.SEED,
-                                         device="cuda", **kw)
     phases = {}
 
     def sink(sw):
@@ -347,7 +354,7 @@ def trace(value=None, host_activity=True):
         backward_window_ms=(last - first) / 1e3,
         glue_launches=len(glue), glue_device_ms=sum(e - s for s, e, _ in glue) / 1e3,
         glue_top=by_name(glue)[:12], top=by_name(dev)[:15])
-    print(f"[trace] wall {wall:.3f} s, NPV {res.npv:.4f}, phases {phases}; device busy "
+    print(f"[trace] wall {wall:.3f} s, NPV {res.npv:.6f}, phases {phases}; device busy "
           f"{out['device_busy_ms']:.1f} ms, idle share {out['idle_share']:.4f}; K1 {out['k1']}, "
           f"K2 {out['k2']}, K3 {out['k3']}; backward window {out['backward_window_ms']:.1f} ms "
           f"holds {out['glue_launches']} other kernels, {out['glue_device_ms']:.2f} ms of "
@@ -357,7 +364,7 @@ def trace(value=None, host_activity=True):
     return out
 
 
-def hourly(out_path, card):
+def hourly(card):
     """The streamed hourly case: a warm-up run, an untraced run with phase
     syncs, its host-side parts alone, then a traced run."""
     import numpy as np
@@ -405,15 +412,12 @@ def hourly(out_path, card):
     print(f"[hourly] alone: host compile {t1 - t0:.3f} s, intrinsic DP {t2 - t1:.3f} s, "
           f"its float64 sweep {t3 - t2:.3f} s")
     result["trace"] = trace(value, host_activity=False)
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    out_path.write_text(json.dumps(result, indent=1))
     return result
 
 
 def sass_summary(fragment):
-    """Instruction counts of the current library's kernel whose mangled name
+    """Instruction counts of the current library's kernels whose mangled name
     holds ``fragment``: total, loops (start, end, instructions), top opcodes."""
-    import re
     import subprocess
     from collections import Counter
     from storage_tpu_torch.ops import csrc
@@ -443,11 +447,23 @@ def sass_summary(fragment):
 _ADDRESS = re.compile(r"/\*[0-9a-f]{4,}\*/")
 
 
+def kernel_key(demangled: str):
+    """(name, element type) of a demangled kernel: its qualified name and
+    template arguments without the element type argument and without its
+    parameter list, and that type, "float" or "double" ("float" for a kernel
+    with no type argument: the float32 kernels before the templates).
+    ``storage_kernels::backward_update_kernel<double, 3>(...)`` gives
+    ``("storage_kernels::backward_update_kernel<3>", "double")``."""
+    head = demangled.split(">(")[0] + ">" if ">(" in demangled else demangled.split("(")[0]
+    m = re.search(r"<(float|double), ", head)
+    if m is None:
+        return head, "float"
+    return head[:m.start() + 1] + head[m.end():], m.group(1)
+
+
 def disassemble(src: Path, dump: Path) -> dict:
-    """{kernel: [instruction lines]} of the cubin of ``src``, a float32
-    kernel keyed by its name and template arguments without ``float, ``
-    (the kernel may be templated on its working type) and its parameter
-    list; the raw disassembly is written to ``dump``."""
+    """{(name, element type): [instruction lines]} of the cubin of ``src``
+    (see :func:`kernel_key`); the raw disassembly is written to ``dump``."""
     import subprocess
     from storage_tpu_torch.ops.csrc import NVCC_FLAGS, _nvcc
 
@@ -457,111 +473,232 @@ def disassemble(src: Path, dump: Path) -> dict:
     sass = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(cubin)], check=True,
                           capture_output=True, text=True).stdout
     dump.write_text(sass)
-    out, name = {}, None
+    out, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :", 1)[1].strip()
             demangled = subprocess.run([str(bindir / "cu++filt"), mangled], check=True,
                                        capture_output=True, text=True).stdout.strip()
-            name = demangled.replace("float, ", "").split(">(")[0] + ">"
-            out[name] = []
-        elif name is not None and _ADDRESS.search(line):
+            key = kernel_key(demangled)
+            out[key] = []
+        elif key is not None and _ADDRESS.search(line):
             # cuobjdump pads its columns to the file's longest instruction.
-            out[name].append(" ".join(_ADDRESS.sub("", line).split()))
+            out[key].append(" ".join(_ADDRESS.sub("", line).split()))
     return out
 
 
-def compare_path_sim_sass(parent: Path) -> list:
-    """The parent's path kernels against the current float32 ones,
-    instruction line by instruction line."""
-    before = disassemble(parent / "path_sim.cu", parent / "parent.sass")
-    after = disassemble(ROOT / "storage_tpu_torch/ops/csrc/path_sim.cu", parent / "current.sass")
+def compare_sass(parent: Path, dumps: Path = None) -> list:
+    """Every float32 kernel of the parent's K1, K2 and K3 sources against the
+    current float32 instantiation of the same name, instruction line by
+    instruction line (the parent's K2 with its grid step repaired); the raw
+    dumps go to ``dumps`` (default ``parent``)."""
+    dumps = parent if dumps is None else dumps
+    dumps.mkdir(parents=True, exist_ok=True)
     rows = []
-    for name in sorted(before):
-        a, b = before[name], after.get(name, [])
-        differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
-        rows.append(dict(kernel=name, instructions=[len(a), len(b)], differing=differ))
-        print(f"[sass parent K3] {name}: {len(a)} -> {len(b)} instruction lines, {differ} differ")
+    for source in ("backward_update.cu", "forward_sim.cu", "path_sim.cu"):
+        if not (parent / source).exists():
+            continue
+        src_dir = repaired_forward(parent) if source == "forward_sim.cu" else parent
+        stem = Path(source).stem
+        before = disassemble(src_dir / source, dumps / f"parent_{stem}.sass")
+        after = disassemble(CSRC / source, dumps / f"current_{stem}.sass")
+        for key in sorted(k for k in before if k[1] == "float"):
+            a, b = before[key], after.get(key, [])
+            differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+            rows.append(dict(source=source, kernel=key[0], instructions=[len(a), len(b)],
+                             differing=differ))
+            print(f"[sass parent {source}] {key[0]}: {len(a)} -> {len(b)} instruction lines, "
+                  f"{differ} differ")
     return rows
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", type=Path, default=ROOT / "storage_tpu_torch/_build/parent")
-    ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
-                    help="another forward_sim.cu with the current interface (repeatable)")
-    ap.add_argument("--no-wall", action="store_true", help="skip the valuation turns")
-    ap.add_argument("--no-trace", action="store_true", help="skip the profiler trace")
-    ap.add_argument("--sass", action="store_true", help="summarise the kernels' machine code")
-    ap.add_argument("--hourly", action="store_true",
-                    help="only the streamed hourly case: untraced, its host parts, traced")
-    ap.add_argument("--out", type=Path, default=None,
-                    help="default chiprun_out/kernel_turns.json (hourly_trace.json with --hourly)")
-    opts = ap.parse_args()
-    if opts.out is None:
-        opts.out = ROOT / "chiprun_out" / ("hourly_trace.json" if opts.hourly
-                                           else "kernel_turns.json")
+def build_all(opts, parent_sources, variant_sources):
+    """The current library (verbose), the parent's and the variants', in
+    parallel. Returns (parent or None, {name: variant})."""
+    from storage_tpu_torch.ops import csrc
 
-    import torch
-    from storage_tpu_torch.ops import csrc, forward
-
-    card = chip_smoke.phase_device()
-    if opts.hourly:
-        csrc.build()
-        csrc.kernels()
-        hourly(opts.out, card)
-        print(f"[card] {card}")
-        return 0
-    variant_dirs = dict(v.split("=", 1) for v in opts.variant)
     t0 = time.perf_counter()
     csrc.build(True)
     csrc.kernels()
-    with ThreadPoolExecutor(2 + len(variant_dirs)) as pool:
-        par = pool.submit(build_parent, opts.parent)
-        par_k3 = pool.submit(build_parent_path_sim, opts.parent)
-        var = {name: pool.submit(build_variant, Path(d)) for name, d in variant_dirs.items()}
-        parent, parent_k3 = par.result(), par_k3.result()
+    variant_dirs = dict(v.split("=", 1) for v in opts.variant)
+    with ThreadPoolExecutor(1 + len(variant_dirs)) as pool:
+        par = pool.submit(build_library, *parent_sources)
+        var = {name: pool.submit(build_library, Path(d), variant_sources, f"variant_{name}", True)
+               for name, d in variant_dirs.items()}
+        parent = par.result()
         variants = {name: f.result() for name, f in var.items()}
-    print(f"[build] {time.perf_counter() - t0:.2f} s; parent K2 "
-          f"{'built' if parent else 'absent'}; parent K3 {'built' if parent_k3 else 'absent'}; "
-          f"variants {list(variants)}")
+    print(f"[build] {time.perf_counter() - t0:.2f} s; parent "
+          f"{'built' if parent else 'absent'}; variants {list(variants)}")
+    return parent, variants
 
-    versions = {}
-    if parent is not None:
-        versions["parent"] = parent_forward(parent)
-    versions["current"] = forward._forward_sim_cuda
-    versions.update({name: on_library(lib) for name, lib in variants.items()})
-    reference = "current"
+
+def main_f32(opts, result):
+    import torch
+    from storage_tpu_torch.ops import forward
+
+    parent_dir = repaired_forward(opts.parent) if (opts.parent / "forward_sim.cu").exists() \
+        else opts.parent
+    parent, variants = build_all(opts, (parent_dir, ("forward_sim.cu",), "parent_forward"),
+                                 ("forward_sim.cu",))
+    parent_k3 = build_library(opts.parent, ("path_sim.cu",), "parent_path_sim")
+    libs = ({"parent": parent} if parent else {}) | {"current": None} | variants
+    versions = {name: on_library(lib, forward._forward_sim_cuda) for name, lib in libs.items()}
 
     captured = chip_smoke.phase_capture()
     args, kw = captured["fwd"]
     n, _, S = args[0].shape
-    result = dict(card=card, device=torch.cuda.get_device_name(0), default=reference)
     full_panels = torch.empty((n, 6, S), device="cuda")
     cases = {"D3": dict(kw, panels=None), "panels": dict(kw, panels=full_panels),
              "D5": dict(kw, panels=None, extra_decisions=1)}
     for label, case_kw in cases.items():
-        result[f"K2_{label}"] = turns(f"K2 {label}", versions, reference,
+        result[f"K2_{label}"] = turns(f"K2 {label}", versions, "current",
                                       lambda fn, case_kw=case_kw: fn(*args, **case_kw))
     del full_panels, cases
     result["K3"] = k3_turns(captured, parent_k3)
     del captured, args
     torch.cuda.empty_cache()
     if parent is not None and not opts.no_wall:
-        result["wall"] = wall_turns(versions["parent"])
+        result["wall"] = wall_turns({"parent": parent, "current": None}, value_main)
     if not opts.no_trace:
         result["trace"] = trace()
     if opts.sass:
-        result["sass"] = {**sass_summary("forward_sim_kernelILi3"),
+        result["sass"] = {**sass_summary("forward_sim_kernelIfLi3"),
                           **sass_summary("path_sim_kernelIfLi3E")}
-        if parent_k3 is not None:
-            result["sass_parent_K3"] = compare_path_sim_sass(opts.parent)
-    opts.out.parent.mkdir(parents=True, exist_ok=True)
-    opts.out.write_text(json.dumps(result, indent=1))
-    print(f"[card] {card}")
+        result["sass_parent"] = compare_sass(opts.parent)
     k3 = result["K3"].get("paths_differ", 0)
-    sass_differ = sum(r["differing"] for r in result.get("sass_parent_K3", []))
+    sass_differ = sum(r["differing"] for r in result.get("sass_parent", []))
     return 1 if k3 or sass_differ else 0
+
+
+def main_f64(opts, result):
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.ops import backward, forward
+
+    parent, variants = build_all(
+        opts, (opts.parent, ("backward_update_f64.cu", "forward_sim_f64.cu"), "parent_f64"),
+        ("backward_update.cu", "forward_sim.cu"))
+    libs = ({"parent": parent} if parent else {}) | {"current": None} | variants
+
+    def having(entry):  # the versions whose own library has the entry point
+        return {name: lib for name, lib in libs.items() if lib is None or lib.has(entry)}
+
+    fwd_spans = chip_smoke._stream_counts(341, chip_smoke.NUM_SIMS, 3,
+                                          chip_smoke.DEFAULT_PATH_BUDGET, itemsize=8)[0]
+    with chip_smoke._recording(chip_smoke.CAPTURE_LAUNCH, fwd_spans["forward_sim"]) as recorded:
+        t0 = time.perf_counter()
+        first = value_f64()
+        torch.cuda.synchronize()
+    print(f"[f64 capture] recording run {time.perf_counter() - t0:.3f} s, NPV {first.npv:.6f}")
+
+    def on_card(name):
+        args, kw = recorded.pop(name)
+        return tuple(a.cuda() for a in args), kw
+
+    k1_args, k1_kw = on_card("K1")
+    result["K1_f64"] = turns(
+        "K1 f64 launch 170", {name: on_library(lib, backward._backward_update_cuda)
+                              for name, lib in having("backward_update_f64_launch").items()},
+        "current", lambda fn: fn(*k1_args, **k1_kw), reps=20)
+    del k1_args
+    for label in ("K2 span", "K2 tail"):
+        args, kw = on_card(label)
+        result[label.replace(" ", "_") + "_f64"] = turns(
+            f"{label} f64 ({args[0].shape[0]} steps)",
+            {name: on_library(lib, forward._forward_sim_cuda)
+             for name, lib in having("forward_sim_f64_launch").items()},
+            "current", lambda fn, args=args, kw=kw: fn(*args, **kw))
+        del args
+    del recorded
+    torch.cuda.empty_cache()
+    if not opts.no_wall:
+        result["wall_f64"] = wall_turns({name: libs[name] for name in ("parent", "current")
+                                         if name in libs}, value_f64, "wall f64")
+    if not opts.no_trace:
+        tt.reset_launch_counts()
+        result["trace_f64"] = trace(value_f64)
+        result["trace_f64"]["launches"] = tt.launch_counts()
+    return 0
+
+
+def main_flips(opts, result):
+    """The float32 K2's near-tie flips with the parent's source as it is and
+    with the current one."""
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.ops.ratchets import INTERP_POLY
+
+    parent, _ = build_all(opts, (opts.parent, ("forward_sim.cu",), "parent_flips"), ())
+    libs = {"parent": parent, "current": None}
+
+    def count(label, args, kw, panels=False):
+        row = {}
+        for name, lib in libs.items():
+            with library(lib):
+                fl = chip_smoke.forward_flips(args, kw, panels)
+            row[name] = dict(flipped=fl["flipped"], per_decision=fl["per_decision"],
+                             npv_effect=fl["npv_effect"])
+        print(f"[flips {label}] " + "; ".join(
+            f"{name} {r['flipped']} paths ({r['per_decision']:.2e} per decision, NPV effect "
+            f"{r['npv_effect']:.2e})" for name, r in row.items()))
+        result[label] = row
+
+    captured = chip_smoke.phase_capture()
+    args, kw = captured["fwd"]
+    poly_args = args[:5] + (chip_smoke._poly_pillars(args[5]),) + args[6:]
+    count("D3", args, kw)
+    count("panels", args, kw, panels=True)
+    count("D5", args, dict(kw, extra_decisions=1))
+    count("POLY", poly_args, dict(kw, interp_kind=INTERP_POLY))
+    del captured, args, poly_args
+    n_sim_steps = 8760 * chip_smoke.HOURLY_YEARS
+    fwd_spans = chip_smoke._stream_counts(n_sim_steps, chip_smoke.HOURLY_SIMS, 3,
+                                          chip_smoke.HOURLY_BUDGET)[0]["forward_sim"]
+    with chip_smoke._path_budget(chip_smoke.HOURLY_BUDGET):
+        with chip_smoke._recording(chip_smoke.HOURLY_CAPTURE_LAUNCH, fwd_spans) as recorded:
+            chip_smoke.value_hourly(tt, chip_smoke.HOURLY_SIMS, 12, device="cuda")
+    for label in ("K2 span", "K2 tail"):
+        args, kw = recorded.pop(label)
+        count(f"hourly {label.split()[1]}", tuple(a.cuda() for a in args), kw)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=ROOT / "storage_tpu_torch/_build/parent")
+    ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
+                    help="an edited copy of the current sources (repeatable)")
+    ap.add_argument("--no-wall", action="store_true", help="skip the valuation turns")
+    ap.add_argument("--no-trace", action="store_true", help="skip the profiler trace")
+    ap.add_argument("--sass", action="store_true", help="compare the kernels' machine code")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--f64", action="store_true", help="the float64 kernels and f64_main")
+    mode.add_argument("--flips", action="store_true", help="the float32 K2's near-tie flips")
+    mode.add_argument("--hourly", action="store_true",
+                      help="only the streamed hourly case: untraced, its host parts, traced")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="default chiprun_out/<mode>.json (kernel_turns, f64_turns, "
+                         "k2_flips, hourly_trace)")
+    opts = ap.parse_args()
+    name = ("f64_turns" if opts.f64 else "k2_flips" if opts.flips
+            else "hourly_trace" if opts.hourly else "kernel_turns")
+    out = opts.out or ROOT / "chiprun_out" / f"{name}.json"
+
+    import torch
+    from storage_tpu_torch.ops import csrc
+
+    card = chip_smoke.phase_device()
+    result = dict(card=card, device=torch.cuda.get_device_name(0))
+    if opts.hourly:
+        csrc.build()
+        csrc.kernels()
+        result.update(hourly(card))
+        rc = 0
+    else:
+        rc = (main_f64 if opts.f64 else main_flips if opts.flips else main_f32)(opts, result)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(f"[card] {card}")
+    return rc
 
 
 if __name__ == "__main__":
