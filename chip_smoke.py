@@ -75,9 +75,10 @@ Phases, each printing its own line (every failure exits non-zero):
    what phase 14 recorded, timed beside its float64 bound: K1 on the
    backward launch, K2 on the span's and the tail's forward launches; K3 bit
    for bit for both sources in all three modes (one launch at
-   ``[341, 3, 1M]``, the checkpoint pass, spans resumed from checkpoints),
-   and antithetic at 100,001 x 37 for 1 to 4 factors; the checkpoint pass,
-   one span and one whole path set timed.
+   ``[341, 3, 1M]`` on its first 64 steps, the checkpoint pass, spans
+   resumed from checkpoints against the one launch and a span against the
+   plain version), and antithetic at 100,001 x 37 for 1 to 4 factors; the
+   checkpoint pass, one span and one whole path set timed.
 16. tree — the trinomial tree on the card against the port on the CPU: the
    README oracle, the headline storage through a one-factor tree (float32 and
    float64), the intrinsic tree, float64 deltas of 12 monthly contracts.
@@ -199,6 +200,7 @@ F64_V_TOL, F64_FLIP_FRAC_MAX, F64_PARTIALS_RTOL = 1e-12, 1e-6, 1e-12
 F64_PV_RTOL, F64_NPV_RTOL = 1e-12, 1e-12
 F64_VS_F32_RTOL, F64_INTRINSIC_RTOL = 1e-2, 1e-5
 PORT_NPV_F64, PORT_NPV_F64_RTOL = 78_362.144839, 1e-6
+F64_PLAIN_STEPS = 64  # the steps of a one-launch float64 path set held against its plain version
 DEFAULT_PATH_BUDGET = 6e9  # the port's (and the JAX package's) default path budget
 F64_SOURCES = {"K1": "storage_tpu_torch/ops/csrc/backward_update.cu (float64 instantiation)",
                "K2": "storage_tpu_torch/ops/csrc/forward_sim.cu (float64 instantiation)",
@@ -297,6 +299,20 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(fn):
+    """(milliseconds, result) of one call of ``fn`` (CUDA events): for the
+    plain versions, whose first call is their comparison as well."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def _bound(nbytes, flops, int_ops=0, itemsize=4):
@@ -691,16 +707,19 @@ def phase_forward_variants(captured):
     }
 
 
-def _compare_paths(label, coeffs, num_sims, key, antithetic, dtype=None):
+def _compare_paths(label, coeffs, num_sims, key, antithetic, dtype=None, steps=None):
     """The path kernel against its plain version on one case, bit for bit
-    (float32, or the float64 mode); returns max |diff|."""
+    (float32, or the float64 mode); with ``steps``, the kernel's one-launch
+    paths over the horizon on their first ``steps`` steps. Returns max |diff|."""
     import torch
     from storage_tpu_torch.models import simulation
 
     dtype = torch.float32 if dtype is None else dtype
     got = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda", dtype)
+    if steps is not None:
+        got = got[:steps]
     ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, "cuda",
-                                                     dtype=dtype)
+                                                     dtype=dtype, num_steps=steps)
     torch.cuda.synchronize()
     check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
           f"{label}: paths {tuple(got.shape)} not finite or not {tuple(ref.shape)}")
@@ -999,8 +1018,9 @@ def phase_path_sim_stream(captured, hourly_coeffs):
 
 def _time_stream_modes(label, coeffs, num_sims, key, antithetic, every, dtype=None):
     """K3's checkpoint pass over the horizon and one span resumed from the
-    middle checkpoint, in ``dtype`` (default float32): each against its plain
-    version bit for bit, then timed beside its bound."""
+    middle checkpoint, in ``dtype`` (default float32): each timed beside its
+    bound, and against its plain version bit for bit (the plain version's one
+    timed call is its comparison)."""
     import torch
     from storage_tpu_torch.models import simulation
 
@@ -1015,10 +1035,8 @@ def _time_stream_modes(label, coeffs, num_sims, key, antithetic, every, dtype=No
     out_c = torch.empty_like(ckpts)
     ms_c = cuda_ms(lambda: simulation._launch_path_sim(tables, out_c, S, antithetic,
                                                        every=every), 3)
-    plain_c = cuda_ms(lambda: simulation.factor_checkpoints_reference(
-        coeffs, S, key, antithetic, every, "cuda", dtype), 1)
-    plain = simulation.factor_checkpoints_reference(coeffs, S, key, antithetic, every, "cuda",
-                                                    dtype)
+    plain_c, plain = timed_once(lambda: simulation.factor_checkpoints_reference(
+        coeffs, S, key, antithetic, every, "cuda", dtype))
     differ, err_c = _bits_differ(out_c, plain), float((out_c - plain).abs().max())
     check(differ == 0, f"{label} checkpoints: {differ} elements differ from the plain version")
     steps_c = (num_ckpt - 1) * every  # the pass stops at the last checkpoint
@@ -1027,10 +1045,8 @@ def _time_stream_modes(label, coeffs, num_sims, key, antithetic, every, dtype=No
     out_s = torch.empty((every, F, S), device="cuda", dtype=dtype)
     span = dict(y0=ckpts[i], step0=i * every, num_steps=every)
     ms_s = cuda_ms(lambda: simulation._launch_path_sim(tables, out_s, S, antithetic, **span), 20)
-    plain_s = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
-        coeffs, S, key, antithetic, "cuda", dtype=dtype, **span), 2)
-    plain = simulation.simulate_factor_paths_reference(coeffs, S, key, antithetic, "cuda",
-                                                       dtype=dtype, **span)
+    plain_s, plain = timed_once(lambda: simulation.simulate_factor_paths_reference(
+        coeffs, S, key, antithetic, "cuda", dtype=dtype, **span))
     differ, err_s = _bits_differ(out_s, plain), float((out_s - plain).abs().max())
     check(differ == 0, f"{label} span: {differ} elements differ from the plain version")
     del plain
@@ -1502,10 +1518,16 @@ def phase_f64_kernels(recorded, every, spans):
     """The float64 kernels against their plain float64 versions on what
     f64_main's recording run kept, each timed beside its float64 bound: K1 on
     its mid-horizon launch, K2 on the middle span's and the tail's launches;
-    K3 bit for bit for both streaming sources in one launch at
-    ``[341, 3, 1M]``, in its checkpoint pass and in spans resumed from the
-    checkpoints, and antithetic at 100,001 sims x 37 steps for 1 to 4
-    factors; K3's three modes timed at f64_main's shapes."""
+    K3 bit for bit for both streaming sources (its one launch at
+    ``[341, 3, 1M]`` on the first F64_PLAIN_STEPS steps, its checkpoint pass
+    over the horizon, its spans resumed from the checkpoints against the one
+    launch over the whole horizon), and antithetic at 100,001 sims x 37 steps
+    for 1 to 4 factors in all three modes; K3's three modes timed at
+    f64_main's shapes. The plain float64 K3 emulates the kernel's fused
+    multiply-adds exactly, which makes it about six times slower than the
+    separately rounded steps it had, so the one-launch path sets are held on
+    their first steps: the checkpoint pass and a span are held against the
+    plain version in full, and every span against the one launch."""
     import numpy as np
     import torch
     from storage_tpu_torch.models import simulation
@@ -1520,7 +1542,7 @@ def phase_f64_kernels(recorded, every, spans):
             recorded["sources"], ("regression", "valuation")):
         check(not antithetic, "the main path is not antithetic")
         max_err = max(max_err, _compare_paths(f"K3 path_sim f64 {name} set", coeffs, num_sims,
-                                              key, False, f64))
+                                              key, False, f64, steps=F64_PLAIN_STEPS))
         _check_stream(f"K3 stream f64 {name} set", coeffs, num_sims, key, False, src_every, f64)
     rng = np.random.default_rng(SEED)
     for F in (1, 2, 3, 4):
@@ -1536,8 +1558,8 @@ def phase_f64_kernels(recorded, every, spans):
     n, F = coeffs.decay.shape
     ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
         coeffs, num_sims, key, False, "cuda", f64), 5)
-    plain_ms = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
-        coeffs, num_sims, key, False, "cuda", dtype=f64), 1)
+    plain_ms, _ = timed_once(lambda: simulation.simulate_factor_paths_reference(
+        coeffs, num_sims, key, False, "cuda", dtype=f64))
     bound_ms, bound_by = k3_bound(n, num_sims, F, num_sims, itemsize=8)
     print(f"[K3 path_sim f64] {n} steps x {F} factors x {num_sims} sims: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share "

@@ -22,17 +22,22 @@ map and XLA's float32 ``erf_inv`` polynomial (``torch.erfinv`` differs by
 of the hash as one 64-bit word, keeps 52 mantissa bits, and goes through
 XLA's float64 ``erf_inv`` (Giles' three-range expansion) and XLA's
 ``log1p`` (a rational approximation below ``sqrt(2) - 1``, ``log(1 + x)``
-above it), so the float64 draws are the JAX package's to 3 ulp (XLA's CPU
-code fuses their multiply-adds, the port rounds every step on its own).
+above it), rounded as XLA's CPU code rounds them: each polynomial step, and
+the OU update after its first product, one fused multiply-add (:func:`_fma`,
+exact in separately rounded float64 ops), every other step on its own.  So
+the float64 draws are the JAX package's bit for bit wherever the platform's
+``log`` and ``sqrt`` agree with XLA's.
 
 :func:`simulate_factor_paths` sends a CUDA device to one fused kernel
 (``ops/csrc/path_sim.cu``: hash, normal map and OU update per sim in
 registers, native uint32 arithmetic, nothing but the paths written to device
-memory) and the CPU to :func:`simulate_factor_paths_reference`, the plain
+memory; in float64 each warp sorts a few steps' draws by ``log1p`` branch in
+shared memory first) and the CPU to :func:`simulate_factor_paths_reference`, the plain
 PyTorch version: threefry2x32 in int64 tensor arithmetic masked to 32 bits,
 normals one 16-step draw block at a time (integer temporaries of
-``[16, F, S]``).  The kernel rounds every step as the plain version's torch
-ops do, so the two give the same paths bit for bit on one card.
+``[16, F, S]``).  The kernel rounds every step as the plain version does
+(a float64 fused step with the card's DFMA), so the two give the same paths
+bit for bit on one card.
 
 :class:`StreamingFactorSource` serves horizons whose paths do not fit the
 device: one checkpoint pass (the kernel's checkpoint mode, or
@@ -241,24 +246,80 @@ def random_bits(key: Tuple[int, int], shape, device) -> torch.Tensor:
     return o1 ^ o2
 
 
-def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+_SPLIT = 2.0**27 + 1.0  # Veltkamp's splitter for float64
+
+
+def _split(a: torch.Tensor):
+    """Veltkamp's split of ``a`` into two halves of 26 bits each, ``a = hi + lo``."""
+    t = _SPLIT * a
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """Knuth's TwoSum: ``s = a + b`` rounded and its error, ``a + b = s + e`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fma(a, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, as the card's DFMA computes it, from float64
+    torch ops that each round on their own (Boldo and Melquiond, "Emulation
+    of FMA and correctly rounded sums: proved algorithms using rounding to
+    odd", IEEE Trans. Computers 57(4), 2008): Dekker's exact product
+    ``uh + ul``, the TwoSum ``c + uh = th + tl``, the low parts added with
+    rounding to odd, and one rounded sum of ``th`` and that odd part.  Only
+    plain ``*``, ``+`` and ``-``, so no backend can contract them.  ``a`` or
+    ``b`` may be a Python float.  Exact for operands whose products neither
+    overflow nor underflow, as the normal map's and the OU update's are."""
+    a, b = torch.as_tensor(a, dtype=c.dtype, device=c.device), \
+        torch.as_tensor(b, dtype=c.dtype, device=c.device)
+    uh = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    # Round to odd: an inexact sum whose last bit is even steps one ulp
+    # toward the exact value.
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(v, float("inf")), torch.full_like(v, -float("inf")))
+    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    # v == 0: the sum is th exactly, with th's sign of zero (th + 0 would
+    # turn -0 into +0).
+    return torch.where(v == 0, th, th + v)
+
+
+def _xla_log1p(x: torch.Tensor, log=torch.log) -> torch.Tensor:
     """XLA's float64 ``log1p``: the Cephes rational approximation below
-    ``sqrt(2) - 1`` in magnitude, ``log(1 + x)`` above it, each step rounded
-    on its own (``ops/csrc/path_sim.cu`` evaluates the same steps)."""
+    ``sqrt(2) - 1`` in magnitude, ``log(1 + x)`` above it, rounded as XLA's
+    CPU code rounds it: each Horner step of P and Q one fused multiply-add,
+    every other product, sum and the division on its own.  The inner sum
+    ``-0.5 x^2 + x^3 P / Q`` is the same whether it is fused or not, since
+    ``-0.5 x^2`` is exact; fusing the other product,
+    ``fma(x^3, P / Q, -0.5 x^2)``, is not what XLA computes (a search over
+    millions of arguments tells the forms apart).  ``log`` is a seam for
+    tests (XLA's own ``log`` on the same argument); ``ops/csrc/path_sim.cu``
+    evaluates the same steps."""
     def horner(coefs):
         p = torch.zeros_like(x)
         for c in coefs:
-            p = p * x + c
+            p = _fma(p, x, torch.full_like(x, c))
         return p
 
     x2 = x * x
     small = x + (-0.5 * x2 + (x * x2) * (horner(_LOG1P_P) / horner(_LOG1P_Q)))
-    return torch.where(x.abs() < _LOG1P_SMALL, small, torch.log(x + 1.0))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
 
 
-def _erf_inv_f64(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float64 ``erf_inv`` (Giles' three-range expansion)."""
-    w = -_xla_log1p(-x * x)
+def _erf_inv_f64(x: torch.Tensor, log=torch.log, sqrt=torch.sqrt) -> torch.Tensor:
+    """XLA's float64 ``erf_inv`` (Giles' three-range expansion), each Horner
+    step one fused multiply-add as XLA's CPU code computes it.  ``log`` goes
+    to :func:`_xla_log1p`; ``sqrt``, of the two outer ranges, is a seam for
+    tests as well (torch's float64 ``sqrt`` on the CPU is not correctly
+    rounded on every argument; on a CUDA device it is)."""
+    w = -_xla_log1p(-x * x, log)
     lt6 = w < 6.25
     lt16 = w < 16.0
 
@@ -271,10 +332,10 @@ def _erf_inv_f64(x: torch.Tensor) -> torch.Tensor:
         return c
 
     w = torch.where(lt6, w - 3.125,
-                    torch.sqrt(w) - torch.where(lt16, x.new_tensor(3.25), x.new_tensor(5.0)))
-    p = coef(0)
+                    sqrt(w) - torch.where(lt16, x.new_tensor(3.25), x.new_tensor(5.0)))
+    p = coef(0).expand_as(x)
     for i in range(1, len(_ERFINV64_LT6_25)):
-        step = coef(i) + p * w
+        step = _fma(p, w, coef(i).expand_as(x))
         if i < len(_ERFINV64_GE16):
             p = step
         elif i < len(_ERFINV64_LT16):  # the two outer ranges' polynomials have ended
@@ -363,6 +424,7 @@ def _ou_steps(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int], anti
     if step0 % _DRAW_BLOCK:
         raise ValueError(f"step0 ({step0}) must be a multiple of {_DRAW_BLOCK}.")
     num_factors = coeffs.decay.shape[1]
+    fused = _fma if dtype == torch.float64 else (lambda a, b, c: a * b + c)
     decay = torch.as_tensor(coeffs.decay, dtype=dtype).to(device)
     chol = torch.as_tensor(coeffs.chol, dtype=dtype).to(device)
     if y0 is None:
@@ -374,11 +436,12 @@ def _ou_steps(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int], anti
         for c in range(min(_DRAW_BLOCK, step0 + num_steps - b0)):
             k = b0 + c
             # Exact OU update: decay + correlated increment, the rank-F
-            # contraction written out (F is tiny).
+            # contraction written out (F is tiny).  In float64 its later
+            # products are fused into the sums, as XLA's CPU code fuses them.
             inc = chol[k, :, 0, None] * z_b[c, 0]
             for f in range(1, num_factors):
-                inc = inc + chol[k, :, f, None] * z_b[c, f]
-            y = decay[k, :, None] * y + inc
+                inc = fused(chol[k, :, f, None], z_b[c, f], inc)
+            y = fused(decay[k, :, None], y, inc)
             yield k - step0, y
         del z_b
 

@@ -14,7 +14,7 @@
 // a checkpointed entering state. A span regenerated from its checkpoint
 // equals the same steps of the one-launch paths bit for bit: the draws
 // depend only on the key and the absolute step, the state is carried in
-// float32 either way.
+// its type either way.
 //
 // What it computes. Steps are drawn in blocks of 16; block b0's key is
 // fold_in(key, b0), hashed on the host (n / 16 pairs). Element
@@ -30,9 +30,10 @@
 // state is exactly -y (round-to-nearest is symmetric in sign): the thread
 // of sim s writes both.
 //
-// Rounding. Every product and sum of the uniform map, the Horner steps and
-// the OU update is rounded on its own (__fmul_rn / __fadd_rn: nvcc may not
-// contract them into FMAs), in the order of the plain version's torch ops;
+// Rounding, float32. Every product and sum of the uniform map, the Horner
+// steps and the OU update is rounded on its own (__fmul_rn / __fadd_rn:
+// nvcc may not contract them into FMAs), in the order of the plain
+// version's torch ops;
 // log1pf and the IEEE square root are the functions torch's CUDA ops call.
 // Polynomial coefficients are double literals cast to float, which is how
 // the plain version's Python floats become float32. So the paths equal the
@@ -44,30 +45,66 @@
 // XLA's float64 erf_inv (Giles' three-range expansion in w = -log1p(-u^2))
 // and XLA's log1p (the Cephes rational approximation below sqrt(2) - 1,
 // log(1 + x) above it), as jax.random.normal(key, shape, float64) draws.
-// Every step is rounded on its own (__dmul_rn / __dadd_rn / __ddiv_rn),
-// log and the IEEE square root are the functions torch's CUDA ops call,
-// so the float64 paths equal the plain version's float64 paths bit for bit
-// as well. The state is carried and written in float64.
+// The state is carried and written in float64.
+//
+// Float64 rounding: as XLA's CPU code rounds it, which fuses multiply-adds.
+// Each Horner step of erf_inv and of log1p's P and Q is one DFMA
+// (__fma_rn), and so is the OU update after its first product:
+// inc = c0 z0, inc = fma(c_g, z_g, inc), y = fma(decay, y, inc). Every
+// other product, sum and the division is rounded on its own (__dmul_rn,
+// __dadd_rn, __ddiv_rn: nvcc contracts nothing), log and the IEEE square
+// root are the functions torch's CUDA ops call. The plain version computes
+// the same steps with an exact FMA written in float64 torch ops
+// (models/simulation.py::_fma), so the paths equal it bit for bit, and
+// equal JAX's wherever the platform's log agrees.
 //
 // What bounds it on the H100. The function's only necessary traffic is its
 // output, written once: 4 B x n x F x S (4.09 GB at 341 x 3 x 1M: 1.22 ms
-// at 3.35 TB/s). Per drawn element the hash is 72 integer operations (20
-// rounds of add, rotate, xor; 11 key additions; the final xor) plus 3 for
-// the counter and the mantissa, at the card's int32 rate (64 lanes per SM,
-// half the float32 lane rate: 16.75e12 operations/s); 1.02e9 elements take
-// 4.6 ms. The float work (the map, log1pf, the square root, 16 Horner
-// operations, 2F + 1 for the OU update) is ~35 operations per element,
-// 0.5 ms at 67 TFLOP/s, on another pipe. So integer operations bound it,
-// not bytes. The checkpoint pass does the same operations and writes 1 / every
-// of the bytes.
+// at 3.35 TB/s; 2.44 ms in float64). Per drawn element the hash is 72
+// integer operations (20 rounds of add, rotate, xor; 11 key additions; the
+// final xor) plus 3 for the counter and the mantissa, at the card's int32
+// rate (64 lanes per SM, half the float32 lane rate: 16.75e12
+// operations/s); 1.02e9 elements take 4.6 ms. The float32 work (the map,
+// log1pf, the square root, 16 Horner operations, 2F + 1 for the OU update)
+// is ~35 operations per element, 0.5 ms at 67 TFLOP/s, on another pipe. So
+// integer operations bound it, not bytes. The float64 map is ~85 operations
+// a draw (2.6 ms at 34 TFLOP/s): the hash bounds it as well. The checkpoint
+// pass does the same operations and writes 1 / every of the bytes.
 //
-// Design. One thread per drawn sim, looping over all n steps with y[F] in
-// registers: no temporaries in device memory, no shared memory, no
+// Design, float32. One thread per drawn sim, looping over all n steps with
+// y[F] in registers: no temporaries in device memory, no shared memory, no
 // __syncthreads. F is a template parameter, so a step's F hashes are
 // independent chains the scheduler interleaves. Arithmetic is native uint32
 // (rotations are funnel shifts). The per-step coefficients (decay, chol:
 // F + F F floats) and the block keys are read through the read-only cache
 // at addresses uniform over the warp. Stores are coalesced along s.
+//
+// Design, float64 (path_sim_f64_kernel). The float32 design evaluated both
+// branches of log1p in every warp (a lane's draw takes the rational branch
+// with 64% probability, the log with 36%), the square root under a select,
+// and two or three selects per Horner step to pick a range's coefficient:
+// ~150 FP64 and ~165 other instructions a draw. A draw's uniform depends
+// only on the key and its counter, never on the state, so a warp first
+// draws all uniforms of a round of K3F64::kSteps steps (each lane its own
+// sim's kSteps x F), sorts them into two lists in shared memory by a ballot
+// a draw (class A, |u^2| < sqrt(2) - 1: the rational log1p and erf_inv's
+// first range; class B, the log branch), and maps each list in full-warp
+// passes of one draw a lane: straight-line code with constant-bank
+// coefficients, no selects. Class C (w >= 6.25, 0.1% of
+// draws: the square root and the two outer ranges) is a branch inside B's
+// passes. Each normal goes back to its list slot; after
+// __syncwarp each lane reads its own draws through a per-lane position
+// table and runs the OU updates and stores as the float32 design does. The
+// last warp is ragged: lanes past the sims take part in every ballot and
+// __syncwarp and draw nothing. Compaction changes where a draw is computed,
+// never how: the paths are the same in one launch, in the checkpoint pass
+// and in spans. What bounds it now is instruction issue: ~237 instructions
+// a draw (the hash ~80, the map ~65 in class A and ~95 in B, sorting,
+// OU update and stores the rest), and the map's FP64 work does not hide
+// behind the hash's integer work (ablations and the sizes tried: PERF.md,
+// section 6).
+#include <type_traits>
+
 #include "storage_kernels.cuh"
 
 namespace storage_kernels {
@@ -139,9 +176,10 @@ __device__ __forceinline__ float normal_from_bits(uint32_t bits) {
   return __fmul_rn(erf_inv_rn(u), 0x1.6a09e6p+0f);  // float32(sqrt(2))
 }
 
-// XLA's float64 log1p and erf_inv, each step rounded like the torch version
-// (models/simulation.py::_xla_log1p, _erf_inv_f64). Coefficients highest
-// power first.
+// XLA's float64 log1p and erf_inv, rounded as XLA's CPU code rounds them
+// (models/simulation.py::_xla_log1p, _erf_inv_f64): each Horner step one
+// fused multiply-add (__fma_rn), every other product, sum and the division
+// on its own. Coefficients highest power first, read from the constant bank.
 __constant__ double kLog1pP[7] = {
     4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
     2.9911919328553073277375e1,  6.0949667980987787057556e1,  5.7112963590585538103336e1,
@@ -175,45 +213,85 @@ __constant__ double kErfInvGe16[17] = {
     7.5995277030017761139e-05,  -0.00021503011930044477347, -0.00013871931833623122026,
     1.0103004648645343977,      4.8499064014085844221};
 
-__device__ __forceinline__ double xla_log1p(double x) {
-  double p = 0.0, q = 0.0;
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    p = __dadd_rn(__dmul_rn(p, x), kLog1pP[i]);
-    q = __dadd_rn(__dmul_rn(q, x), kLog1pQ[i]);
-  }
-  const double x2 = __dmul_rn(x, x);
-  const double small =
-      __dadd_rn(x, __dadd_rn(__dmul_rn(-0.5, x2), __dmul_rn(__dmul_rn(x, x2), __ddiv_rn(p, q))));
-  return fabs(x) < 0.41421356237309504880 ? small : log(__dadd_rn(x, 1.0));
-}
+// Class A, |x| < sqrt(2) - 1 for x = -u u rounded, is |u| <= kRationalMaxU:
+// the largest double whose rounded square lies below sqrt(2) - 1 (the
+// rounded square is monotone in |u|), one compare in place of a product
+// and a compare.
+constexpr double kRationalMaxU = 0x1.49852f983efddp-1;
+constexpr double kSqrt2 = 0x1.6a09e667f3bcdp+0;
 
-__device__ __forceinline__ double erf_inv64_rn(double x) {
-  double w = -xla_log1p(__dmul_rn(-x, x));
-  const bool lt6 = w < 6.25;
-  const bool lt16 = w < 16.0;
-  w = lt6 ? __dsub_rn(w, 3.125) : __dsub_rn(__dsqrt_rn(w), lt16 ? 3.25 : 5.0);
-  double p = lt6 ? kErfInvLt6[0] : lt16 ? kErfInvLt16[0] : kErfInvGe16[0];
-#pragma unroll
-  for (int i = 1; i < 23; ++i) {
-    double c = kErfInvLt6[i];
-    if (i < 19) c = lt6 ? c : kErfInvLt16[i];
-    if (i < 17) c = lt16 ? c : kErfInvGe16[i];
-    const double step = __dadd_rn(c, __dmul_rn(p, w));
-    // The two outer ranges' polynomials end after 17 and 19 terms.
-    p = i < 17 ? step : i < 19 ? (lt16 ? step : p) : (lt6 ? step : p);
-  }
-  return fabs(x) == 1.0 ? __dmul_rn(x, __longlong_as_double(0x7ff0000000000000ll))
-                        : __dmul_rn(p, x);
-}
-
-// jax.random.normal's float64 value for the 64-bit random word o1 << 32 | o2.
-__device__ __forceinline__ double normal_from_words(uint32_t o1, uint32_t o2) {
+// u in [nextafter(-1, 0), 1) for the 64-bit random word o1 << 32 | o2: its top
+// 52 bits as the mantissa of a number in [1, 2), then scaled as
+// jax.random.uniform scales it, max(lo, unit (1 - lo) + lo). Here 1 - lo
+// rounds to 2, so the product is exact and the two roundings are one FMA;
+// and unit >= 0, so the max is the sum.
+__device__ __forceinline__ double uniform_from_words(uint32_t o1, uint32_t o2) {
   const double lo = -0x1.fffffffffffffp-1;  // nextafter(-1, 0)
   const uint64_t mant = ((uint64_t)o1 << 20) | (o2 >> 12);
   const double unit = __dsub_rn(__longlong_as_double(mant | 0x3FF0000000000000ull), 1.0);
-  const double u = fmax(lo, __dadd_rn(__dmul_rn(unit, __dsub_rn(1.0, lo)), lo));
-  return __dmul_rn(erf_inv64_rn(u), 0x1.6a09e667f3bcdp+0);  // sqrt(2)
+  return __fma_rn(unit, 2.0, lo);
+}
+
+// The argument of log1p in erf_inv: -u u.
+__device__ __forceinline__ double log1p_arg(double u) { return __dmul_rn(-u, u); }
+
+// The first range of erf_inv, w < 6.25: 22 DFMA.
+__device__ __forceinline__ double erf_inv_first_range(double w) {
+  const double v = __dsub_rn(w, 3.125);
+  double e = kErfInvLt6[0];
+#pragma unroll
+  for (int i = 1; i < 23; ++i) e = __fma_rn(e, v, kErfInvLt6[i]);
+  return e;
+}
+
+// The two outer ranges, w >= 6.25 (0.1% of draws): the square root and the
+// coefficients of w < 16 (19 terms) or beyond (17 terms), selected per lane.
+__device__ __noinline__ double erf_inv_outer_ranges(double w) {
+  const bool lt16 = w < 16.0;
+  const double v = __dsub_rn(__dsqrt_rn(w), lt16 ? 3.25 : 5.0);
+  double e = lt16 ? kErfInvLt16[0] : kErfInvGe16[0];
+#pragma unroll
+  for (int i = 1; i < 19; ++i) {
+    const double step =
+        __fma_rn(e, v, i < 17 ? (lt16 ? kErfInvLt16[i] : kErfInvGe16[i]) : kErfInvLt16[i]);
+    e = (i < 17 || lt16) ? step : e;  // the third range's polynomial ends after 17 terms
+  }
+  return e;
+}
+
+// The normal for the uniform u from erf_inv's polynomial value e: e u
+// sqrt(2). (erf_inv(+-1) = +-inf, the plain version's special case, never
+// arises: the uniforms lie strictly inside (-1, 1).)
+__device__ __forceinline__ double normal_of(double e, double u) {
+  return __dmul_rn(__dmul_rn(e, u), kSqrt2);
+}
+
+// Class A, |x| < sqrt(2) - 1 (x = -u^2): the rational log1p, whose w =
+// -log1p(x) < 0.54 lies in erf_inv's first range. Straight-line: 12 + 22
+// DFMA and one division.
+__device__ __forceinline__ double normal_rational(double u) {
+  const double x = log1p_arg(u);
+  double p = kLog1pP[0], q = kLog1pQ[0];
+#pragma unroll
+  for (int i = 1; i < 7; ++i) {
+    p = __fma_rn(p, x, kLog1pP[i]);
+    q = __fma_rn(q, x, kLog1pQ[i]);
+  }
+  const double x2 = __dmul_rn(x, x);
+  // XLA's inner sum -0.5 x^2 + x^3 P / Q is the same fused or not, since
+  // -0.5 x^2 is exact: written unfused, as in the plain version.
+  const double small =
+      __dadd_rn(x, __dadd_rn(__dmul_rn(-0.5, x2), __dmul_rn(__dmul_rn(x, x2), __ddiv_rn(p, q))));
+  return normal_of(erf_inv_first_range(-small), u);
+}
+
+// Class B, |x| >= sqrt(2) - 1: w = -log(1 + x) and erf_inv's first range,
+// straight-line; class C, w >= 6.25, is taken by a branch.
+__device__ __forceinline__ double normal_log(double u) {
+  const double w = -log(__dadd_rn(log1p_arg(u), 1.0));
+  double e = erf_inv_first_range(w);
+  if (!(w < 6.25)) e = erf_inv_outer_ranges(w);
+  return normal_of(e, u);
 }
 
 // One normal of the working type T for the counter of a draw.
@@ -223,13 +301,6 @@ __device__ __forceinline__ T normal_draw(const uint32_t (&ks)[3], uint32_t count
 template <>
 __device__ __forceinline__ float normal_draw<float>(const uint32_t (&ks)[3], uint32_t counter) {
   return normal_from_bits(threefry_bits(ks, counter));
-}
-
-template <>
-__device__ __forceinline__ double normal_draw<double>(const uint32_t (&ks)[3], uint32_t counter) {
-  uint32_t o1, o2;
-  threefry_words(ks, counter, o1, o2);
-  return normal_from_words(o1, o2);
 }
 
 // Products and sums of the OU update are rounded on their own in either type
@@ -323,12 +394,159 @@ __global__ void __launch_bounds__(kSimThreads)
   }
 }
 
+// The float64 mode (see the head of this file): a warp draws the uniforms
+// of kSteps steps before any OU update, sorts them by the normal map's
+// branch, and maps each class in full-warp passes.
+struct K3F64 {
+  static constexpr int kThreads = 128;  // threads per block
+  static constexpr int kSteps = 8;      // steps drawn per round (divides kDrawBlock)
+};
+
+// Shared memory per warp: the round's uniforms in class order (class A from
+// the front, B and C from the back), mapped in place to normals, and each
+// lane's position of its draw j in that order.
+template <int kF>
+struct F64Round {
+  static constexpr int kCap = K3F64::kSteps * kF * kWarp;  // draws of a warp per round
+  double val[kCap];
+  uint16_t pos[kCap];  // [j][lane]
+};
+
+// Maps the n entries at val[first + dir * r], r = 0..n-1, of one class to
+// normals in place, in full-warp passes of one entry a lane.
+template <bool kRational>
+__device__ __forceinline__ void map_class(double* val, int first, int dir, int n, int lane) {
+  for (int r = lane; r - lane < n; r += kWarp) {
+    if (r < n) {
+      double* v = val + first + dir * r;
+      *v = kRational ? normal_rational(*v) : normal_log(*v);
+    }
+  }
+}
+
+// The float64 path kernel: the modes, arguments and values of
+// path_sim_kernel, one thread per drawn sim. Lanes past draw_sims (the last
+// warp) take part in every ballot and __syncwarp but draw nothing.
+template <int kF, bool kCheckpoints>
+__global__ void __launch_bounds__(K3F64::kThreads)
+    path_sim_f64_kernel(const uint32_t* __restrict__ keys, const double* __restrict__ coef,
+                        const double* __restrict__ y0, double* __restrict__ out,
+                        long long num_sims, uint32_t draw_sims, int step0, int num_steps,
+                        int every) {
+  using Round = F64Round<kF>;
+  __shared__ Round rounds[K3F64::kThreads / kWarp];  // static: no shared window base to rebuild
+  const int lane = threadIdx.x % kWarp;
+  Round& sh = rounds[threadIdx.x / kWarp];
+  const uint32_t s = blockIdx.x * (uint32_t)K3F64::kThreads + threadIdx.x;
+  if (s - lane >= draw_sims) return;  // the whole warp lies past the sims
+  const bool active = s < draw_sims;
+  const bool mirror = active && (long long)s + draw_sims < num_sims;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const unsigned active_lanes = __ballot_sync(0xffffffffu, active);
+  const int active_below = __popc(active_lanes & lanes_below), num_active = __popc(active_lanes);
+  constexpr int kRow = kF + kF * kF;
+  double y[kF];
+#pragma unroll
+  for (int f = 0; f < kF; ++f) y[f] = y0 != nullptr && active ? y0[(size_t)f * num_sims + s] : 0.0;
+  const int last = kCheckpoints ? ((num_steps - 1) / every) * every : num_steps;
+  int until_ckpt = 0;
+  for (int i0 = 0; i0 < last; i0 += K3F64::kSteps) {
+    const int steps = min(K3F64::kSteps, last - i0);
+    const int k0 = step0 + i0;  // a round lies in one draw block: kSteps divides 16
+    uint32_t ks[3];
+    ks[0] = __ldg(keys + 2 * (k0 / kDrawBlock));
+    ks[1] = __ldg(keys + 2 * (k0 / kDrawBlock) + 1);
+    ks[2] = ks[0] ^ ks[1] ^ 0x1BD11BDAu;
+    // Draw: each lane hashes its own uniforms; one ballot a draw sorts the
+    // warp's uniforms into the two lists.
+    int num_rational = 0, num_log = 0;
+    for (int c = 0; c < steps; ++c) {
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        uint32_t o1, o2;
+        threefry_words(ks, (uint32_t)((k0 % kDrawBlock + c) * kF + f) * draw_sims + s, o1, o2);
+        const double u = uniform_from_words(o1, o2);
+        const bool rational = fabs(u) <= kRationalMaxU;
+        const unsigned in_rational = __ballot_sync(0xffffffffu, active && rational);
+        const int rank = __popc(in_rational & lanes_below), count = __popc(in_rational);
+        const int e = rational ? num_rational + rank
+                               : Round::kCap - 1 - num_log - (active_below - rank);
+        if (active) {
+          sh.val[e] = u;
+          sh.pos[(c * kF + f) * kWarp + lane] = (uint16_t)e;
+        }
+        num_rational += count;
+        num_log += num_active - count;
+      }
+    }
+    __syncwarp();
+    map_class<true>(sh.val, 0, 1, num_rational, lane);
+    map_class<false>(sh.val, Round::kCap - 1, -1, num_log, lane);
+    __syncwarp();
+    if (active) {
+      // Running pointers: the step's coefficient row, and sim s's element of
+      // the step's state [F, S] in path mode.
+      const double* row = coef + (size_t)(step0 + i0) * kRow;
+      double* dst = out + (size_t)i0 * kF * num_sims + s;
+      for (int c = 0; c < steps; ++c, row += kRow, dst += (size_t)kF * num_sims) {
+        const int i = i0 + c;
+        if (kCheckpoints) {
+          if (until_ckpt == 0) {
+            store_state<double, kF>(out + (size_t)(i / every) * kF * num_sims, y, num_sims, s,
+                                    draw_sims, mirror);
+            until_ckpt = every;
+          }
+          --until_ckpt;
+        }
+        double z[kF];
+#pragma unroll
+        for (int f = 0; f < kF; ++f) z[f] = sh.val[sh.pos[(c * kF + f) * kWarp + lane]];
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          // XLA's fusion: inc = c0 z0, inc = fma(c_g, z_g, inc), y = fma(decay, y, inc).
+          double inc = __dmul_rn(__ldg(row + kF + f * kF), z[0]);
+#pragma unroll
+          for (int g = 1; g < kF; ++g) inc = __fma_rn(__ldg(row + kF + f * kF + g), z[g], inc);
+          y[f] = __fma_rn(__ldg(row + f), y[f], inc);
+          if (!kCheckpoints) {
+            dst[(size_t)f * num_sims] = y[f];
+            if (mirror) dst[(size_t)f * num_sims + draw_sims] = mirrored(y[f]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the next round overwrites the lists
+  }
+  if (kCheckpoints && active) {
+    store_state<double, kF>(out + (size_t)(last / every) * kF * num_sims, y, num_sims, s,
+                            draw_sims, mirror);
+  }
+}
+
+template <int kF, bool kCheckpoints>
+static void launch_path_sim_f64(unsigned blocks, cudaStream_t st, const uint32_t* keys,
+                                const double* coef, const double* y0, double* out,
+                                long long num_sims, uint32_t draw_sims, int step0,
+                                int num_steps, int every) {
+  path_sim_f64_kernel<kF, kCheckpoints><<<blocks, K3F64::kThreads, 0, st>>>(
+      keys, coef, y0, out, num_sims, draw_sims, step0, num_steps, every);
+}
+
 template <typename T, int kF>
 static void launch_path_sim(bool checkpoints, unsigned blocks, cudaStream_t st,
                             const uint32_t* keys, const T* coef, const T* y0, T* out,
                             long long num_sims, uint32_t draw_sims, int step0, int num_steps,
                             int every) {
-  if (checkpoints) {
+  if constexpr (std::is_same<T, double>::value) {
+    blocks = (unsigned)(((long long)draw_sims + K3F64::kThreads - 1) / K3F64::kThreads);
+    if (checkpoints) {
+      launch_path_sim_f64<kF, true>(blocks, st, keys, coef, y0, out, num_sims, draw_sims, step0,
+                                    num_steps, every);
+    } else {
+      launch_path_sim_f64<kF, false>(blocks, st, keys, coef, y0, out, num_sims, draw_sims, step0,
+                                     num_steps, every);
+    }
+  } else if (checkpoints) {
     path_sim_kernel<T, kF, true><<<blocks, kSimThreads, 0, st>>>(
         keys, coef, y0, out, num_sims, draw_sims, step0, num_steps, every);
   } else {

@@ -20,9 +20,10 @@ decisions may flip; flips are counted and bounded like ``chip_smoke.py``
 bounds them (<= 1e-4 of the paths per decision; panels and final
 inventories within 1e-5 of each field's max outside flipped paths, a path
 counting as flipped where its PV or any of its volumes differ).  The
-float64 instantiations are held tighter: K3 bit for bit, K2 to 1e-12 with
-no flips (it rounds as torch does), K1 to 1e-12 outside at most 1e-6 of
-flipped V entries.
+float64 instantiations are held tighter: K3 bit for bit (its draws and OU
+update fuse multiply-adds where XLA does, with the card's DFMA against the
+plain version's exact emulation), K2 to 1e-12 with no flips (it rounds as
+torch does), K1 to 1e-12 outside at most 1e-6 of flipped V entries.
 """
 import numpy as np
 import pytest
@@ -482,13 +483,17 @@ def test_forward_sim_f64_matches_plain(cuda, spec, S, n, P, interp_kind, extra, 
 
 
 @pytest.mark.parametrize("antithetic", [False, True], ids=["plain", "antithetic"])
-@pytest.mark.parametrize("n", [5, 37])
+@pytest.mark.parametrize("n,num_sims", [(5, 10_001), (37, 10_001), (37, 100_001)],
+                         ids=["5", "37", "37-class-C"])
 @pytest.mark.parametrize("num_factors", [1, 2, 3, 4])
-def test_path_sim_f64_equals_plain(cuda, num_factors, n, antithetic):
+def test_path_sim_f64_equals_plain(cuda, num_factors, n, num_sims, antithetic):
     """The path kernel's float64 mode against its plain version, bit for bit
     (the same hash, both words of it per draw, XLA's float64 erf_inv and
-    log1p, every step rounded as torch rounds it)."""
-    num_sims = 10_001
+    log1p with their polynomial steps and the OU update fused as XLA fuses
+    them, the card's DFMA against the plain version's emulated FMA). The
+    kernel sorts each warp's draws by the normal map's branch: sim counts
+    that are no multiple of 32 (a ragged last warp), and 100,001 x 37 x F
+    draws, enough to fill the rare outer ranges (w >= 6.25, 0.1% of draws)."""
     coeffs = _sim_coefficients(num_factors, n)
     key = simulation.fold_in(simulation.prng_key(12), 1)
     reset_launch_counts()
@@ -504,8 +509,13 @@ def test_path_sim_f64_equals_plain(cuda, num_factors, n, antithetic):
 
 @pytest.mark.parametrize("num_factors,n,num_sims,antithetic,every", [
     (3, 103, 4_097, True, 32), (2, 33, 257, True, 16), (3, 300, 2_049, False, 512),
-], ids=["F3-antithetic-odd", "tail-of-1", "one-span"])
+    (3, 37, 100_001, True, 16), (3, 37, 100_001, False, 16), (1, 70, 100_003, True, 32),
+], ids=["F3-antithetic-odd", "tail-of-1", "one-span", "class-C-antithetic", "class-C",
+        "F1-class-C"])
 def test_path_sim_f64_spans_equal_one_launch(cuda, num_factors, n, num_sims, antithetic, every):
+    """Spans from checkpoints equal the one-launch paths, and the checkpoint
+    pass its plain version, bit for bit; with 100,001 sims and more the
+    outer ranges of erf_inv are drawn in every mode."""
     coeffs = _sim_coefficients(num_factors, n)
     key = simulation.fold_in(simulation.prng_key(12), 1)
     mono = simulation.simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,

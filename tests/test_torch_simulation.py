@@ -6,10 +6,17 @@ uniforms too.  Normals go through XLA's float32 ``erf_inv`` polynomial; the
 ``log1p``/``sqrt`` inside differ by an ulp between XLA and torch, so
 normals agree to 4 ulp and mostly bit for bit.  Factor paths and spot
 prices then agree to 1e-5 relative.
+
+The float64 draws and OU update round some steps as one fused multiply-add,
+as XLA's CPU code does: the plain version's ``_fma``, written in separately
+rounded float64 torch ops, must equal the exactly rounded ``a * b + c`` (a
+``fractions.Fraction`` oracle) on every triple.
 """
 import os
+import re
 import sys
 from datetime import date
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +76,115 @@ def test_normals_within_4_ulp(seed):
     ulps = _ulps(got, expected)
     assert ulps.max() <= 4
     assert (ulps == 0).mean() >= 0.90
+
+
+def _fma_triples(kind, rng, n=3000):
+    """``n`` float64 triples ``(a, b, c)`` of one kind."""
+    if kind == "horner":  # erf_inv's and log1p's steps: p w + c, |c| from 1e-21 to 5
+        return (rng.standard_normal(n) * 10.0 ** rng.uniform(-21, 1, n),
+                rng.uniform(-4.0, 4.0, n), rng.standard_normal(n) * 10.0 ** rng.uniform(-21, 1, n))
+    a = rng.standard_normal(n) * 10.0 ** rng.uniform(-8, 8, n)
+    b = rng.standard_normal(n) * 10.0 ** rng.uniform(-8, 8, n)
+    if kind == "cancel":  # c = -a b rounded: the result is the product's rounding error
+        return a, b, -(a * b)
+    if kind == "ties":  # a b exactly half an ulp of c, or three quarters of one
+        c = np.ldexp(1.0 + rng.integers(0, 2**52, n) * 2.0**-52, rng.integers(-30, 30, n))
+        half = np.ldexp(1.0, np.frexp(c)[1] - 54)
+        scale = np.where(np.arange(n) % 2 == 0, 1.0, 1.5)
+        return half * scale, np.where(np.arange(n) % 3 == 0, -1.0, 1.0), c
+    # zeros: a zero product with c of either sign and zero, and zero sums
+    a[: n // 2] = np.where(np.arange(n // 2) % 2 == 0, 0.0, -0.0)
+    c = np.where(np.arange(n) % 3 == 0, -0.0, np.where(np.arange(n) % 3 == 1, 0.0, -(a * b)))
+    return a, b, c
+
+
+@pytest.mark.parametrize("kind", ["horner", "cancel", "ties", "zeros"])
+def test_fma_rounds_once(kind):
+    """``_fma`` equals ``a * b + c`` rounded once (IEEE round to nearest
+    even, an exactly zero sum +0 unless both addends are -0) on every
+    triple, with its sign of zero."""
+    a, b, c = _fma_triples(kind, np.random.default_rng(len(kind)))
+    got = torch_sim._fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    midpoints = 0
+    for i in range(len(a)):
+        exact = Fraction(a[i]) * Fraction(b[i]) + Fraction(c[i])
+        if exact == 0:
+            both_negative = np.signbit(a[i] * b[i]) and np.signbit(c[i]) and a[i] * b[i] == 0
+            want = -0.0 if both_negative else 0.0
+        else:
+            want = float(exact)  # Fraction -> float rounds to nearest even
+        assert got[i] == want and np.signbit(got[i]) == np.signbit(want), (a[i], b[i], c[i])
+        midpoints += 2 * abs(exact - Fraction(want)) == Fraction(float(np.spacing(abs(want))))
+    if kind == "ties":  # half of them lie exactly between two doubles
+        assert midpoints >= 0.4 * len(a)
+
+
+def _fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once: the product is exact in float64,
+    the sum rounded to odd there, then to float32 (Boldo and Melquiond)."""
+    s, e = torch_sim._two_sum(a.double() * b.double(), c.double())
+    toward = torch.where(e > 0, torch.full_like(s, float("inf")), torch.full_like(s, -float("inf")))
+    odd = torch.where((e != 0) & ((s.view(torch.int64) & 1) == 0), torch.nextafter(s, toward), s)
+    return odd.float()
+
+
+def _erf_inv_f32_probe(x, log1p, fused):
+    """``_erf_inv_f32`` with its ``log1p`` given and, with ``fused``, each
+    Horner step one float32 FMA."""
+    w = -log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, x.new_tensor(torch_sim._ERFINV_LT5[0]), x.new_tensor(torch_sim._ERFINV_GE5[0]))
+    for c_lt, c_ge in zip(torch_sim._ERFINV_LT5[1:], torch_sim._ERFINV_GE5[1:]):
+        c = torch.where(lt, x.new_tensor(c_lt), x.new_tensor(c_ge))
+        p = _fma32(p, w, c) if fused else c + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+@pytest.mark.parametrize("seed", [12, 13])
+def test_float32_normals_differ_by_fusion_and_log1p(seed):
+    """Why the float32 normals are held to 4 ulp (a probe; the float32 map
+    is left as it is): with erf_inv's Horner steps fused as XLA fuses them
+    and XLA's own float32 ``log1p``, 99.99% of the draws equal JAX's
+    (measured 99.999% at both seeds, 2 ulp at most), against ~95% for the
+    port's separate roundings and ~99% for fused steps with torch's
+    ``log1p``."""
+    key, jkey = _key_pair(seed)
+    expected = np.asarray(jax.random.normal(jkey, NORMAL_SHAPE, jnp.float32))
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = torch_sim.uniform_from_bits(torch_sim.random_bits(key, NORMAL_SHAPE, "cpu"), lo, 1.0)
+
+    def xla_log1p(t):
+        return torch.from_numpy(np.array(jax.jit(jnp.log1p)(jnp.asarray(t.numpy()))))
+
+    sqrt2 = float(np.float32(np.sqrt(2)))
+    equal = {}
+    for name, log1p, fused in (("port", torch.log1p, False), ("fused", torch.log1p, True),
+                               ("fused_xla_log1p", xla_log1p, True)):
+        got = (_erf_inv_f32_probe(u, log1p, fused) * sqrt2).numpy()
+        equal[name] = float((_ulps(got, expected) == 0).mean())
+    np.testing.assert_array_equal(
+        (_erf_inv_f32_probe(u, torch.log1p, False) * sqrt2).numpy(),
+        torch_sim.normal(key, NORMAL_SHAPE, "cpu").numpy())
+    assert equal["port"] >= 0.90 and equal["fused"] >= 0.98
+    assert equal["fused_xla_log1p"] >= 0.9999
+
+
+def test_path_kernel_class_threshold_is_the_plain_branch_test():
+    """The float64 path kernel sorts a draw into ``log1p``'s rational branch
+    by ``|u| <= kRationalMaxU``; the plain version by ``|-u u| < sqrt(2) - 1``
+    on the rounded square. The constant is the largest double whose rounded
+    square lies below the bound, so both tests agree on every uniform."""
+    src = open(os.path.join(os.path.dirname(__file__), "..", "storage_tpu_torch", "ops", "csrc",
+                            "path_sim.cu")).read()
+    t = float.fromhex(re.search(r"kRationalMaxU = (0x[0-9a-fp.+-]+);", src).group(1))
+    bound = torch_sim._LOG1P_SMALL
+    assert t * t < bound and np.nextafter(t, 2.0) ** 2 >= bound
+    near = np.nextafter(t, np.array([0.0, 2.0]))
+    u = np.concatenate([near, -near, [t, -t], torch_sim.uniform_from_words64(
+        *torch_sim._hash_words(torch_sim.prng_key(12), NORMAL_SHAPE, "cpu"),
+        float(np.nextafter(-1.0, 0.0)), 1.0).numpy().ravel()])
+    np.testing.assert_array_equal(np.abs(u) <= t, np.abs(-u * u) < bound)
 
 
 def _seasonal_coeffs(mf):

@@ -15,9 +15,11 @@ earlier commit's sources, written there with
 ``git show <commit>:storage_tpu_torch/ops/csrc/<name> > DIR/<name>``:
 ``backward_update.cu``, ``forward_sim.cu``, ``path_sim.cu`` and
 ``storage_kernels.cuh`` (the float32 kernels, any of them may be absent),
-and for ``--f64`` the separate float64 sources the port had before its
-kernels were templated on the element type (``backward_update_f64.cu``,
-``forward_sim_f64.cu``, ``storage_kernels_f64.cuh``). Each is built with
+and for ``--f64`` the float64 sources: the separate ones the port had before
+its kernels were templated on the element type (``backward_update_f64.cu``,
+``forward_sim_f64.cu``, ``storage_kernels_f64.cuh``) where DIR has them, else
+the templated ``backward_update.cu`` and ``forward_sim.cu``, and
+``path_sim.cu`` (K3's float64 mode). Each is built with
 ``csrc.compile_library`` and called through the current C interface: its
 entry points stand in for the package's own, the others stay the
 package's. A parent ``forward_sim.cu`` that still divides its grid step
@@ -25,9 +27,9 @@ package's. A parent ``forward_sim.cu`` that still divides its grid step
 reciprocal that torch computes (``GSTEP_REPAIR``), except under ``--flips``,
 which counts the flips of both. ``--variant NAME=DIR`` (repeatable) builds
 an edited copy of the current ``backward_update.cu`` / ``forward_sim.cu``
-and ``storage_kernels.cuh`` from DIR (one constant changed, such as K2's
-``kR`` or K1's resident blocks, or one part taken out) and times it beside
-the others.
+(under ``--f64`` also ``path_sim.cu``) and ``storage_kernels.cuh`` from DIR
+(one constant changed, such as K2's ``kR``, K1's resident blocks or K3's
+``K3F64`` sizes, or one part taken out) and times it beside the others.
 
 Default (float32):
 1. build   — the current library, the parent and the variants, together.
@@ -42,24 +44,31 @@ Default (float32):
 5. wall    — the headline valuation at 1M paths with the parent's kernels and
    with the current ones, in turns; wall and phases.
 6. trace   — ``torch.profiler`` over one more (warm) valuation: the top
-   device operations, K1's, K2's and K3's device totals, the other kernels
-   launched between the first and the last K1 launch (the backward
-   induction's per-step glue), and the device's idle share of the traced wall.
-7. ``--sass`` — instruction counts of the current K2 and K3 (``cuobjdump
-   -sass``: total, loops, commonest opcodes), and every float32 kernel of the
-   parent's K1, K2 and K3 sources against the current float32 instantiation
-   of the same name, instruction line by instruction line (raw dumps
-   ``DIR/parent_<source>.sass`` and ``DIR/current_<source>.sass``). The tool
-   exits 1 if a line differs or the parent's K3 paths differ.
+   device operations, K1's, K2's and K3's device totals (K3 in either
+   mode), the other kernels launched between the first and the last K1
+   launch but the streamed spans' K3 launches (the backward induction's
+   per-step glue), and the device's idle share of the traced wall.
+7. ``--sass`` — instruction counts of the current K2 and K3, float32 and
+   float64 (``cuobjdump -sass``: total, loops, commonest opcodes), and every
+   float32 kernel of the parent's K1, K2 and K3 sources against the current
+   float32 instantiation of the same name, instruction line by instruction
+   line (raw dumps ``DIR/parent_<source>.sass`` and
+   ``DIR/current_<source>.sass``). The tool exits 1 if a line differs or the
+   parent's K3 paths differ.
 
 ``--f64``: f64_main's configuration (the headline case in float64 at 1M
 paths and the default path budget, streamed) run once recording its K1
 launch 170, the forward launch of its middle 64-step span and of its 20-step
-tail; K1 on launch 170 and K2 on both launches timed in turns (parent,
-current, variants, then in reverse order; 20 and 5 launches each) with
-their outputs against the current kernel's; the f64_main wall with the
-parent's float64 kernels and with the current ones, in turns; then a trace
-of one warm f64_main with the summary of step 6.
+tail and its streaming sources; K1 on launch 170 and K2 on both launches
+timed in turns (parent, current, variants, then in reverse order; 20 and 5
+launches each) with their outputs against the current kernel's; K3's
+float64 mode (``path_sim_f64_launch`` of the parent's ``path_sim.cu`` and of
+variants holding one) on the regression source in its three modes (one
+launch at ``[341, 3, 1M]``, the checkpoint pass, a 64-step span), in turns,
+each version's paths against the current kernel's in ulp (a parent that
+rounds every step on its own, unfused, lies an ulp or so away);
+the f64_main wall with the parent's float64 kernels and with the current
+ones, in turns; then a trace of one warm f64_main with the summary of step 6.
 
 ``--flips``: the near-tie flips of the float32 K2 against its plain version
 (``chip_smoke.forward_flips``) with the parent's ``forward_sim.cu`` as it is
@@ -340,17 +349,22 @@ def trace(value=value_main, host_activity=True):
             t[1] += (e - s) / 1e3
         return sorted(([n, c, t] for n, (c, t) in totals.items()), key=lambda x: -x[2])
 
-    def total(fragment):
-        hits = [(s, e) for s, e, n in dev if fragment in n]
+    def total(*fragments):
+        hits = [(s, e) for s, e, n in dev if any(f in n for f in fragments)]
         return dict(launches=len(hits), ms=sum(e - s for s, e in hits) / 1e3), hits
 
+    # K3: the float32 path kernel and the float64 one (path_sim_f64_kernel).
+    k3_names = ("path_sim_kernel", "path_sim_f64_kernel")
     k1_total, k1 = total("backward_update_kernel")
     first, last = k1[0][0], k1[-1][1]
+    # The glue: every other kernel of the backward window but the streamed
+    # spans' path kernel launches.
     glue = [(s, e, n) for s, e, n in dev
-            if first <= s <= last and "backward_update_kernel" not in n]
+            if first <= s <= last and "backward_update_kernel" not in n
+            and not any(f in n for f in k3_names)]
     out.update(
         device_busy_ms=busy / 1e3, idle_share=1.0 - busy / 1e3 / (wall * 1e3),
-        k1=k1_total, k2=total("forward_sim_kernel")[0], k3=total("path_sim_kernel")[0],
+        k1=k1_total, k2=total("forward_sim_kernel")[0], k3=total(*k3_names)[0],
         backward_window_ms=(last - first) / 1e3,
         glue_launches=len(glue), glue_device_ms=sum(e - s for s, e, _ in glue) / 1e3,
         glue_top=by_name(glue)[:12], top=by_name(dev)[:15])
@@ -450,14 +464,17 @@ _ADDRESS = re.compile(r"/\*[0-9a-f]{4,}\*/")
 def kernel_key(demangled: str):
     """(name, element type) of a demangled kernel: its qualified name and
     template arguments without the element type argument and without its
-    parameter list, and that type, "float" or "double" ("float" for a kernel
-    with no type argument: the float32 kernels before the templates).
+    parameter list, and that type, "float" or "double". A kernel with no
+    type argument is "double" if a parameter is a double pointer (the
+    float64 path kernel, ``path_sim_f64_kernel<3, false>``), else "float"
+    (the float32 kernels before the templates).
     ``storage_kernels::backward_update_kernel<double, 3>(...)`` gives
     ``("storage_kernels::backward_update_kernel<3>", "double")``."""
     head = demangled.split(">(")[0] + ">" if ">(" in demangled else demangled.split("(")[0]
     m = re.search(r"<(float|double), ", head)
     if m is None:
-        return head, "float"
+        params = demangled[len(head):]
+        return head, "double" if re.search(r"\bdouble\b", params) else "float"
     return head[:m.start() + 1] + head[m.end():], m.group(1)
 
 
@@ -563,11 +580,80 @@ def main_f32(opts, result):
         result["trace"] = trace()
     if opts.sass:
         result["sass"] = {**sass_summary("forward_sim_kernelIfLi3"),
-                          **sass_summary("path_sim_kernelIfLi3E")}
+                          **sass_summary("path_sim_kernelIfLi3E"),
+                          **sass_summary("path_sim_f64_kernelILi3ELb0")}
         result["sass_parent"] = compare_sass(opts.parent)
     k3 = result["K3"].get("paths_differ", 0)
     sass_differ = sum(r["differing"] for r in result.get("sass_parent", []))
     return 1 if k3 or sass_differ else 0
+
+
+def f64_sources(parent: Path) -> tuple:
+    """The sources of ``parent`` that hold the float64 kernels: K1 and K2 in
+    the separate ``*_f64.cu`` files where it has them (the port before its
+    kernels were templated on the element type), else in the templated
+    ``backward_update.cu`` and ``forward_sim.cu``; K3's float64 mode always
+    in ``path_sim.cu``."""
+    split = tuple(s for s in ("backward_update_f64.cu", "forward_sim_f64.cu")
+                  if (parent / s).exists())
+    return (split or ("backward_update.cu", "forward_sim.cu")) + ("path_sim.cu",)
+
+
+def ulps_apart(a, b):
+    """(equal share, max ulp) of two float64 tensors of one shape, on the card."""
+    import torch
+
+    d = (a.view(torch.int64) - b.view(torch.int64)).abs()
+    return float((d == 0).double().mean()), int(d.max())
+
+
+def k3_f64_turns(source, versions, reps=5):
+    """K3 float64 on one of f64_main's streaming sources, in its three modes
+    (one launch over the horizon, the checkpoint pass, the span from the
+    middle checkpoint): each version in turn, then in reverse order, its
+    outputs against the current kernel's in ulp (bit for bit only where the
+    versions round alike)."""
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    coeffs, S, key, antithetic, every = source
+    n, F = coeffs.decay.shape
+    f64 = torch.float64
+    tables = simulation._path_kernel_tables(coeffs, key, "cuda", f64)
+    num_ckpt = -(-n // every)
+    mid = num_ckpt // 2
+    outs = {"paths": torch.empty((n, F, S), dtype=f64, device="cuda"),
+            "checkpoints": torch.empty((num_ckpt, F, S), dtype=f64, device="cuda"),
+            "span": torch.empty((every, F, S), dtype=f64, device="cuda")}
+    ckpts = torch.empty_like(outs["checkpoints"])
+    with library(None):
+        simulation._launch_path_sim(tables, ckpts, S, antithetic, every=every)
+    kw = {"paths": {}, "checkpoints": dict(every=every),
+          "span": dict(y0=ckpts[mid], step0=mid * every, num_steps=every)}
+
+    def call(lib, mode):
+        with library(lib):
+            return simulation._launch_path_sim(tables, outs[mode], S, antithetic, **kw[mode])
+
+    rows = {}
+    for mode in outs:
+        ref = call(versions["current"], mode).clone()
+        apart = {name: ulps_apart(call(lib, mode), ref) for name, lib in versions.items()}
+        order = list(versions) + list(reversed(versions))
+        times = {name: [] for name in versions}
+        for name in order:
+            times[name].append(chip_smoke.cuda_ms(lambda: call(versions[name], mode),
+                                                  4 * reps if mode == "span" else reps))
+        del ref
+        for name in versions:
+            print(f"[turns K3 f64 {mode} {tuple(outs[mode].shape)}] {name}: "
+                  f"{' / '.join(f'{t:.4f}' for t in times[name])} ms; against current: "
+                  f"{apart[name][0]:.6f} equal, max {apart[name][1]} ulp")
+        rows[mode] = dict(order=order, ms=times, equal_share={k: v[0] for k, v in apart.items()},
+                          max_ulp={k: v[1] for k, v in apart.items()})
+    del outs, ckpts
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main_f64(opts, result):
@@ -576,8 +662,8 @@ def main_f64(opts, result):
     from storage_tpu_torch.ops import backward, forward
 
     parent, variants = build_all(
-        opts, (opts.parent, ("backward_update_f64.cu", "forward_sim_f64.cu"), "parent_f64"),
-        ("backward_update.cu", "forward_sim.cu"))
+        opts, (opts.parent, f64_sources(opts.parent), "parent_f64"),
+        ("backward_update.cu", "forward_sim.cu", "path_sim.cu"))
     libs = ({"parent": parent} if parent else {}) | {"current": None} | variants
 
     def having(entry):  # the versions whose own library has the entry point
@@ -609,6 +695,7 @@ def main_f64(opts, result):
              for name, lib in having("forward_sim_f64_launch").items()},
             "current", lambda fn, args=args, kw=kw: fn(*args, **kw))
         del args
+    result["K3_f64"] = k3_f64_turns(recorded["sources"][0], having("path_sim_f64_launch"))
     del recorded
     torch.cuda.empty_cache()
     if not opts.no_wall:
