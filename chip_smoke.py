@@ -79,9 +79,23 @@ Phases, each printing its own line (every failure exits non-zero):
    resumed from checkpoints against the one launch and a span against the
    plain version), and antithetic at 100,001 x 37 for 1 to 4 factors; the
    checkpoint pass, one span and one whole path set timed.
-16. tree — the trinomial tree on the card against the port on the CPU: the
+16. mesh — the headline case over a paths mesh of two shards on the one
+   card (``paths_mesh(["cuda:0"] * 2)``): float32 on the materialised route,
+   a recording run and a timed one, against phase 5's one-device run (NPV
+   within 1e-5, intrinsic equal, peak device memory within 1.1x, launches
+   twice phase 5's, no plain version called); float64 at the default path
+   budget (streamed per shard) against the float64 record and phase 14's
+   run; then K1 and K2 against their plain versions on the last shard's
+   recorded launches, and K3's window mode bit for bit against its plain
+   version and the one-launch columns: both types, both path sets, the
+   checkpoint pass and spans, and antithetic windows across the partners'
+   boundary at 1 to 4 factors; the window timed at a shard's shape.
+17. tree — the trinomial tree on the card against the port on the CPU: the
    README oracle, the headline storage through a one-factor tree (float32 and
    float64), the intrinsic tree, float64 deltas of 12 monthly contracts.
+
+``python3 chip_smoke.py --all-cards`` runs phases 1, 2, 5, 14 and the mesh
+phase over ``paths_mesh()``, one shard on each visible card.
 
 Prints the kernel table as one JSON line, then the result as the last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -113,8 +127,9 @@ REF_INTRINSIC, INTRINSIC_ATOL = 40_976.0, 5.0
 # A change to a kernel's rounding or reduction order may move it past this
 # bound while every kernel still holds its flip bounds against its plain
 # version: then the record is read anew from this run, and PERF.md
-# says which change moved it and by how much.
-PORT_NPV, PORT_NPV_RTOL = 78_377.3750, 1e-5
+# says which change moved it and by how much (read anew when the float32
+# draws took XLA's rounding: 78,377.3750 -> 78,377.4375).
+PORT_NPV, PORT_NPV_RTOL = 78_377.4375, 1e-5
 PATH_SETS = 2  # path-set simulations (= path kernel launches) per valuation
 BASIS = "1 + x_st + x_sw + x_lt + s + x_st**2 + x_sw**2 + x_lt**2 + s**2 + s * x_st"
 # Kernel vs plain version (rounding differs: nvcc contracts a*b+c into FMA,
@@ -173,7 +188,7 @@ STREAM_MAIN_BUDGET, STREAM_NPV_RTOL = 1e9, 1e-4
 # must lie above the quantized record by what the full-depth CPU pair gave,
 # 7.43%, give or take one point for its 1,024 paths.
 HOURLY_YEARS, HOURLY_SIMS, HOURLY_BUDGET = 2, 250_000, 1.5e9
-HOURLY_PORT_NPV, HOURLY_NPV_RTOL = 163_372.3750, 1e-4
+HOURLY_PORT_NPV, HOURLY_NPV_RTOL = 163_372.4062, 1e-4  # 163,372.3750 before XLA's float32 rounding
 HOURLY_QUANTIZED_NPV, HOURLY_QUANTIZED_BAND = 152_007.0, (0.0643, 0.0843)
 HOURLY_BASIS = "1 + x_st + x_sw + x_lt + s + x_st**2 + s**2"
 HOURLY_PEAK_BYTES_MAX = 6 * 2**30
@@ -216,6 +231,17 @@ README_TREE_NPV, README_TREE_RTOL = 24_809.48, 0.02
 TREE_MEAN_REVERSION, TREE_INTRINSIC_RTOL = 5.5, 5e-4
 TREE_NPV_RTOL = {"float32": 1e-5, "float64": 1e-10}
 TREE_DELTA_TOL = 1e-6
+# The mesh phase: the headline case over a paths mesh of MESH_SHARDS shards
+# on the one card (``--all-cards``: one shard on each card).  Its float32 NPV
+# within MESH_NPV_RTOL of the same process's one-device run (the shards'
+# partials are added in another order: float32 regression noise), its
+# float64 NPV within MESH_F64_NPV_RTOL of the float64 record, intrinsic
+# equal, peak device memory (the most on one device) within MESH_PEAK_RATIO
+# of the one-device run's.  K3's window mode at the small antithetic shape
+# takes MESH_SMALL_WINDOW, a window across the partners' boundary.
+MESH_SHARDS = 2
+MESH_NPV_RTOL, MESH_F64_NPV_RTOL, MESH_PEAK_RATIO = 1e-5, 1e-9, 1.1
+MESH_SMALL_WINDOW = (33_333, 40_000)
 
 
 class SmokeFailure(Exception):
@@ -358,9 +384,11 @@ def k3_bound(n, S, F, draw_sims, rows=None, entering_state=False, itemsize=4):
     drawn sims read once when given; per drawn element (n F draw_sims of
     them) 75 integer operations (threefry2x32's 20 rounds of add, rotate and
     xor, 11 key additions and the final xor: 72; the counter and the
-    mantissa: 3) and 29 flops (the uniform map 4, the Giles polynomial 25
-    with log1pf counted as one; the square root of the tail branch is not
-    counted), and per path element (n F S) 2F + 1 flops of the OU update.
+    mantissa: 3) and 55 flops (the uniform map 4, -u u 1, XLA's log1p 31 on
+    either branch (the rational one: 12 FMA and 7 other operations; the log
+    one, Cephes' logf: 9 FMA and 14 others), the Giles polynomial 8 FMA and
+    1, the scaling 2; the square root of the tail branch is not counted), and
+    per path element (n F S) 2F + 1 flops of the OU update.
     ``itemsize`` 8, the float64 mode: 8-byte states at the float64 peak, and
     85 flops per draw (the uniform map 4, XLA's log1p 34 on its rational
     branch, the 23-term Giles polynomial 47; log and the square root of the
@@ -368,7 +396,7 @@ def k3_bound(n, S, F, draw_sims, rows=None, entering_state=False, itemsize=4):
     rows = n if rows is None else rows
     draws = n * F * draw_sims
     nbytes = itemsize * (rows * F * S + (F * draw_sims if entering_state else 0))
-    per_draw = 85 if itemsize == 8 else 29
+    per_draw = 85 if itemsize == 8 else 55
     return _bound(nbytes, per_draw * draws + (2 * F + 1) * n * F * S, 75 * draws,
                   itemsize=itemsize)
 
@@ -1031,7 +1059,7 @@ def _time_stream_modes(label, coeffs, num_sims, key, antithetic, every, dtype=No
     src = simulation.StreamingFactorSource(coeffs, S, key, antithetic, every=every,
                                            device="cuda", dtype=dtype).prepare()
     every, num_ckpt = src.every, len(src.spans())
-    tables, ckpts = src._tables, src._checkpoints()
+    tables, ckpts = src._tables_on(src.device), src._checkpoints()
     out_c = torch.empty_like(ckpts)
     ms_c = cuda_ms(lambda: simulation._launch_path_sim(tables, out_c, S, antithetic,
                                                        every=every), 3)
@@ -1511,7 +1539,7 @@ def phase_f64_main(main_npv, main_intrinsic):
     check(len(recorded["sources"]) == PATH_SETS
           and all(src[4] == every for src in recorded["sources"]),
           f"the recording run streamed {len(recorded['sources'])} path sets")
-    return counts, recorded, every, spans
+    return counts, recorded, every, spans, peak
 
 
 def phase_f64_kernels(recorded, every, spans):
@@ -1569,6 +1597,292 @@ def phase_f64_kernels(recorded, every, spans):
     modes = _time_stream_modes("K3 f64", coeffs, num_sims, key, False, src_every, f64)
     return ({"f64": k1}, {"f64": k2_span, "f64_tail": k2_tail},
             {"f64": k3, "f64_checkpoints": modes["checkpoints"], "f64_span": modes["span"]})
+
+
+class _plain_calls:
+    """While it is open, count the calls of every kernel's plain version."""
+
+    PLAIN = (("ops.backward", "backward_update_reference"),
+             ("ops.forward", "forward_sim_reference"),
+             ("models.simulation", "simulate_factor_paths_reference"),
+             ("models.simulation", "factor_checkpoints_reference"))
+
+    def __enter__(self):
+        import importlib
+
+        self.calls = []
+        self.saved = []
+        for mod_name, name in self.PLAIN:
+            mod = importlib.import_module(f"storage_tpu_torch.{mod_name}")
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def call(*args, _fn=fn, _name=name, **kw):
+                self.calls.append(_name)
+                return _fn(*args, **kw)
+            setattr(mod, name, call)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class _shard_recording:
+    """While a mesh run makes them, keep on the host the operands of shard
+    ``shard``'s K1 launch at period launch ``backward_launch`` and of its
+    first K2 launch, and the parameters of the path-set simulations."""
+
+    def __init__(self, shards, shard, backward_launch):
+        self.shards, self.shard, self.backward_launch = shards, shard, backward_launch
+        self.recorded = {"sims": []}
+
+    def __enter__(self):
+        from storage_tpu_torch import valuation
+        from storage_tpu_torch.engines import lsmc
+
+        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths)
+        calls, recorded = {"bwd": 0, "fwd": 0}, self.recorded
+        wanted = {"bwd": (self.backward_launch - 1) * self.shards + self.shard + 1,
+                  "fwd": self.shard + 1}
+
+        def recording(kind, label, real):
+            def call(*args, **kw):
+                calls[kind] += 1
+                if calls[kind] == wanted[kind]:
+                    recorded[label] = (tuple(a.cpu() for a in args), kw)
+                return real(*args, **kw)
+            return call
+
+        def record_sim(coeffs, num_sims, **kw):
+            recorded["sims"].append((coeffs, num_sims, kw["key"], kw["antithetic"]))
+            return self.real[2](coeffs, num_sims, **kw)
+
+        lsmc.backward_update = recording("bwd", "K1", self.real[0])
+        lsmc.forward_sim = recording("fwd", "K2", self.real[1])
+        valuation.simulate_factor_paths = record_sim
+        return recorded
+
+    def __exit__(self, *exc):
+        from storage_tpu_torch import valuation
+        from storage_tpu_torch.engines import lsmc
+
+        lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths = self.real
+
+
+def _check_window(label, coeffs, num_sims, key, antithetic, window, dtype=None, steps=None,
+                  every=None):
+    """K3's window mode against its plain version (the whole block drawn and
+    sliced; with ``steps``, on the first ``steps`` steps) and against the same
+    columns of the one-launch paths over the whole set, bit for bit; with
+    ``every``, also the window's checkpoint pass against its plain version
+    and every span resumed from its checkpoints against the one-launch
+    columns.  Returns max |diff| against the plain version."""
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    dtype = torch.float32 if dtype is None else dtype
+    a, w = window
+    tables = simulation._path_kernel_tables(coeffs, key, "cuda", dtype)
+    whole = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda",
+                                                   dtype, tables=tables)
+    got = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, "cuda",
+                                                 dtype, window=window, tables=tables)
+    differ_whole = _bits_differ(got, whole[..., a:a + w].contiguous())
+    ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, "cuda",
+                                                     dtype=dtype, num_steps=steps, window=window)
+    got_steps = got if steps is None else got[:steps]
+    differ_plain = _bits_differ(got_steps, ref)
+    max_err = float((got_steps - ref).abs().max())
+    del ref, got_steps
+    note = ""
+    if every:
+        n, F = coeffs.decay.shape
+        num_ckpt = -(-n // every)
+        ckpts = torch.empty((num_ckpt, F, w), dtype=dtype, device="cuda")
+        simulation._launch_path_sim(tables, ckpts, num_sims, antithetic, every=every,
+                                    window=window)
+        plain_ckpts = simulation.factor_checkpoints_reference(
+            coeffs, num_sims, key, antithetic, every, "cuda", dtype, window)
+        differ_ckpt = _bits_differ(ckpts, plain_ckpts)
+        del plain_ckpts
+        differ_span = 0
+        for i in range(num_ckpt):
+            s0, s1 = i * every, min((i + 1) * every, n)
+            span = torch.empty((s1 - s0, F, w), dtype=dtype, device="cuda")
+            simulation._launch_path_sim(tables, span, num_sims, antithetic, y0=ckpts[i],
+                                        step0=s0, num_steps=s1 - s0, window=window)
+            differ_span += _bits_differ(span, whole[s0:s1, :, a:a + w].contiguous())
+        note = (f"; {differ_ckpt} checkpoint elements from the plain version, {differ_span} "
+                f"elements of {num_ckpt} spans from the one-launch columns")
+        check(differ_ckpt == 0 and differ_span == 0,
+              f"{label}: window checkpoints {differ_ckpt}, spans {differ_span} elements differ")
+    torch.cuda.synchronize()
+    print(f"[{label}] window [{a}, {a + w}) of {num_sims}{' antithetic' if antithetic else ''}"
+          f" {tuple(got.shape)}: {differ_whole} elements differ from the one-launch columns, "
+          f"{differ_plain} from the plain version"
+          f"{'' if steps is None else f' (first {steps} steps)'}{note}")
+    check(differ_whole == 0 and differ_plain == 0,
+          f"{label}: window paths differ: {differ_whole} from the one launch, {differ_plain} from "
+          "the plain version")
+    return max_err
+
+
+def _time_window(label, coeffs, num_sims, key, window, dtype):
+    """K3's window mode timed at one shard's shape, beside its bound."""
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    n, F = coeffs.decay.shape
+    tables = simulation._path_kernel_tables(coeffs, key, "cuda", dtype)
+    ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
+        coeffs, num_sims, key, False, "cuda", dtype, window=window, tables=tables), 5)
+    # The plain window draws the whole block and slices it.
+    plain_ms, _ = timed_once(lambda: simulation.simulate_factor_paths_reference(
+        coeffs, num_sims, key, False, "cuda", dtype=dtype, window=window))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    bound_ms, bound_by = k3_bound(n, window[1], F, window[1], itemsize=itemsize)
+    print(f"[{label}] window [{n}, {F}, {window[1]}] of {num_sims} sims: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share=bound_ms / ms, library_ms=None)
+
+
+def _peak_over(devices):
+    import torch
+
+    return max(torch.cuda.max_memory_allocated(d) for d in devices)
+
+
+def _mesh_run(label, mesh, expected, plain_calls, dtype=None):
+    """One timed valuation of the headline case over ``mesh``: wall, phases,
+    the peak over its devices, launches against ``expected``, no plain
+    version called.  Returns (result, peak, launch counts)."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+
+    phases = {}
+
+    def sink(sw):
+        phases.update({p: sw.elapsed(p) for p in sw.PHASES + ("All",)})
+
+    devices = sorted(set(mesh.devices), key=str)
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    tt.reset_launch_counts()
+    del plain_calls[:]
+    kw = {} if dtype is None else dict(dtype=dtype)
+    t0 = time.perf_counter()
+    res = value_case(tt, NUM_SIMS, SEED, device="cuda", mesh=mesh, profile_sink=sink, **kw)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    counts = tt.launch_counts()
+    peak = _peak_over(devices)
+    print(f"[{label}] {mesh}: wall {wall:.3f} s; phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    print(f"[{label}] NPV {res.npv:.6f}, intrinsic {res.intrinsic_npv:.6f}, peak device memory "
+          f"{peak / 2**30:.3f} GiB (the most on one of {len(devices)} devices), launches "
+          f"{counts}, plain-version calls {len(plain_calls)}")
+    check(counts == expected, f"{label} launches {counts}, expected {expected}")
+    check(not plain_calls, f"{label} called plain versions: {sorted(set(plain_calls))}")
+    check(np.isfinite(res.npv) and np.isfinite(res.deltas.to_numpy()).all(),
+          f"{label}: NPV or deltas not finite")
+    return res, peak, counts
+
+
+def phase_mesh(mesh, main, f64_main):
+    """The headline case over a paths mesh (by default two shards on the one
+    card): float32 on the materialised route (a recording run, then a timed
+    one) against this process's one-device run, float64 at the default path
+    budget (streamed, so the source runs per shard) against the port's
+    float64 record; launches the one-device run's times the shards, no plain
+    version called, peak device memory within MESH_PEAK_RATIO of the
+    one-device run's. Then K1 and K2 against their plain versions on a
+    shard's recorded launches, and K3's window mode (both types, both path
+    sets, checkpoints and spans, antithetic) bit for bit."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.models import simulation
+
+    main_counts, main_npv, main_intrinsic, main_peak = main
+    f64_counts, f64_peak = f64_main
+    shards = len(mesh.devices)
+    times = {k: v * shards for k, v in main_counts.items()}
+    times64 = {k: v * shards for k, v in f64_counts.items()}
+    shard = shards - 1  # the last shard's launches are held against the plain versions
+    with _plain_calls() as plain_calls:
+        with _shard_recording(shards, shard, CAPTURE_LAUNCH) as recorded:
+            t0 = time.perf_counter()
+            first = value_case(tt, NUM_SIMS, SEED, device="cuda", mesh=mesh)
+            first_wall = time.perf_counter() - t0
+        print(f"[mesh] recording run {first_wall:.3f} s, NPV {first.npv:.4f}")
+        res, peak, counts = _mesh_run("mesh", mesh, times, plain_calls)
+        with _path_budget(DEFAULT_PATH_BUDGET):
+            res64, peak64, counts64 = _mesh_run("mesh f64", mesh, times64, plain_calls,
+                                                torch.float64)
+    rel = abs(res.npv / main_npv - 1.0)
+    rel64 = abs(res64.npv / PORT_NPV_F64 - 1.0)
+    print(f"[mesh] float32 NPV {res.npv:.4f} against the one-device {main_npv:.4f}: rel "
+          f"{rel:.2e}; float64 NPV {res64.npv:.6f} against the record {PORT_NPV_F64:.6f}: rel "
+          f"{rel64:.2e}; peaks {peak / 2**30:.3f} / {peak64 / 2**30:.3f} GiB against one device's "
+          f"{main_peak / 2**30:.3f} / {f64_peak / 2**30:.3f} GiB")
+    check(rel <= MESH_NPV_RTOL, f"mesh float32 NPV {res.npv} vs one device {main_npv}: {rel:.2e}")
+    check(first.npv == res.npv, f"mesh reruns differ: {first.npv} and {res.npv}")
+    check(rel64 <= MESH_F64_NPV_RTOL,
+          f"mesh float64 NPV {res64.npv} vs the record {PORT_NPV_F64}: {rel64:.2e}")
+    check(res.intrinsic_npv == main_intrinsic,
+          f"mesh intrinsic {res.intrinsic_npv} vs one device {main_intrinsic}")
+    check(peak <= MESH_PEAK_RATIO * main_peak and peak64 <= MESH_PEAK_RATIO * f64_peak,
+          f"mesh peaks {peak} / {peak64} B against one device's {main_peak} / {f64_peak} B")
+    check(sorted(recorded) == ["K1", "K2", "sims"] and len(recorded["sims"]) == PATH_SETS,
+          f"the mesh recording run kept {sorted(recorded)}")
+
+    def on_card(name):
+        args, kw = recorded.pop(name)
+        return tuple(a.cuda() for a in args), kw
+
+    k1_args, k1_kw = on_card("K1")
+    check(k1_args[2].shape[1] == NUM_SIMS // shards,
+          f"the recorded K1 launch has {k1_args[2].shape[1]} sims")
+    k1 = _check_backward(f"K1 backward_update mesh shard {shard}", k1_args, k1_kw)
+    del k1_args
+    k2 = _check_forward(f"K2 forward_sim mesh shard {shard}", *on_card("K2"),
+                        min_tiles_per_block=1)
+    windows = mesh.windows(NUM_SIMS)
+    window = windows[shard]
+    max_err = 0.0
+    for (coeffs, num_sims, key, antithetic), name in zip(recorded["sims"],
+                                                         ("regression", "valuation")):
+        for dtype in (torch.float32, torch.float64):
+            tag = "" if dtype == torch.float32 else " f64"
+            f64 = dtype == torch.float64
+            max_err = max(max_err, _check_window(
+                f"K3 window{tag} {name} set", coeffs, num_sims, key, antithetic, window, dtype,
+                steps=F64_PLAIN_STEPS if f64 else None,
+                every=STREAM_CHECK_EVERY if name == "regression" else None))
+    rng = np.random.default_rng(SEED)
+    for F in (1, 2, 3, 4):
+        n = SMALL_PATH_STEPS
+        small = simulation.SimCoefficients(
+            decay=rng.uniform(0.9, 1.0, (n, F)), chol=np.tril(rng.uniform(-0.2, 0.2, (n, F, F))),
+            vols=np.ones((n, F)), log_fwd_drift=np.zeros(n))
+        # A window across the antithetic partners' boundary (sim 50,001).
+        for dtype in (torch.float32, torch.float64):
+            tag = "" if dtype == torch.float32 else " f64"
+            max_err = max(max_err, _check_window(
+                f"K3 window{tag} F={F}", small, SMALL_PATH_SIMS, simulation.prng_key(SEED + F),
+                True, MESH_SMALL_WINDOW, dtype, every=16))
+    coeffs, num_sims, key, _ = recorded["sims"][0]
+    k3 = dict(_time_window("K3 window", coeffs, num_sims, key, window, torch.float32),
+              max_abs_err=max_err)
+    k3_f64 = dict(_time_window("K3 window f64", coeffs, num_sims, key, window, torch.float64),
+                  max_abs_err=max_err)
+    return counts, counts64, {"mesh_shard": k1}, {"mesh_shard": k2}, \
+        {"window": k3, "f64_window": k3_f64}
 
 
 def readme_tree_case(pkg):
@@ -1685,14 +1999,18 @@ def phase_tree(main_intrinsic):
     return counts
 
 
-def main() -> int:
+def main(argv) -> int:
+    all_cards = "--all-cards" in argv
     try:
         import torch
 
         card = phase_device()
         import storage_tpu_torch  # noqa: F401  (fails outside a checkout)
+        from storage_tpu_torch.parallel.mesh import paths_mesh
 
         phase_build()
+        if all_cards:
+            return main_all_cards(card)
         captured = phase_capture()
         k1 = phase_backward(captured)
         k1_d5 = phase_backward_d5(captured)
@@ -1705,7 +2023,8 @@ def main() -> int:
         del captured
         gc.collect()
         torch.cuda.empty_cache()
-        counts, main_npv, main_intrinsic, main_peak = phase_main()
+        main_run = phase_main()
+        counts, main_npv, main_intrinsic, main_peak = main_run
         async_counts = phase_async(main_npv)
         gc.collect()
         phase_cancel()
@@ -1716,10 +2035,15 @@ def main() -> int:
         spot_counts = phase_spot_sim()
         gc.collect()
         torch.cuda.empty_cache()
-        f64_counts, recorded64, f64_every, f64_spans = phase_f64_main(main_npv, main_intrinsic)
+        f64_counts, recorded64, f64_every, f64_spans, f64_peak = phase_f64_main(
+            main_npv, main_intrinsic)
         k1_f64, k2_f64, k3_f64 = phase_f64_kernels(recorded64, f64_every, f64_spans)
         k1_f64[f"f64_G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}"] = k1_large_f64
         del recorded64
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_counts, mesh64_counts, k1_mesh, k2_mesh, k3_mesh = phase_mesh(
+            paths_mesh(["cuda:0"] * MESH_SHARDS), main_run, (f64_counts, f64_peak))
         gc.collect()
         torch.cuda.empty_cache()
         tree_counts = phase_tree(main_intrinsic)
@@ -1731,7 +2055,8 @@ def main() -> int:
         return 1
     paths = {"main": counts, "async": async_counts, "options": options_counts,
              "stream_main": stream_counts, "hourly": hourly_counts, "reprice": reprice_counts,
-             "spot_sim": spot_counts, "f64_main": f64_counts, "tree": tree_counts}
+             "spot_sim": spot_counts, "f64_main": f64_counts, "mesh": mesh_counts,
+             "mesh_f64": mesh64_counts, "tree": tree_counts}
     # The float64 variants' launches on f64_main, by mode: K2 once per span,
     # the tail one of them; K3 one checkpoint pass and then spans per path set.
     f64_launches = {
@@ -1746,6 +2071,16 @@ def main() -> int:
                            launches_f64_main=f64_launches[kernel][name])
                 for name, m in measured.items()}
 
+    # The mesh variants' launches on the mesh paths, every shard's: a float32
+    # variant's on the materialised float32 run (K3's window mode there is
+    # its one-launch path sets), a float64 one's on the streamed float64 run
+    # (K3's window mode there: checkpoint passes and spans).
+    def mesh_variants(kernel, measured):
+        return {name: dict(m, launches_mesh=0 if name.startswith("f64") else mesh_counts[kernel],
+                           launches_mesh_f64=mesh64_counts[kernel] if name.startswith("f64")
+                           else 0)
+                for name, m in measured.items()}
+
     kernels = [
         dict(name="backward_update", route="cuda",
              source="storage_tpu_torch/ops/csrc/backward_update.cu",
@@ -1753,19 +2088,22 @@ def main() -> int:
              launches=counts["backward_update"], **k1,
              launches_by_path={p: c["backward_update"] for p, c in paths.items()},
              variants={"D5": k1_d5, f"G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}": k1_large,
-                       **k1_hourly, **f64_variants("K1", k1_f64)}),
+                       **k1_hourly, **f64_variants("K1", k1_f64),
+                       **mesh_variants("backward_update", k1_mesh)}),
         dict(name="forward_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/forward_sim.cu",
              replaces="storage_tpu/ops/pallas_forward.py:96",
              launches=counts["forward_sim"], **k2,
              launches_by_path={p: c["forward_sim"] for p, c in paths.items()},
-             variants={**k2_variants, **k2_hourly, **f64_variants("K2", k2_f64)}),
+             variants={**k2_variants, **k2_hourly, **f64_variants("K2", k2_f64),
+                       **mesh_variants("forward_sim", k2_mesh)}),
         dict(name="path_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/path_sim.cu",
              replaces="storage_tpu/models/simulation.py:264 (XLA code, no Pallas kernel)",
              launches=counts["path_sim"], **k3,
              launches_by_path={p: c["path_sim"] for p, c in paths.items()},
-             variants={**k3_variants, **f64_variants("K3", k3_f64)}),
+             variants={**k3_variants, **f64_variants("K3", k3_f64),
+                       **mesh_variants("path_sim", k3_mesh)}),
     ]
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
@@ -1775,5 +2113,31 @@ def main() -> int:
     return 0
 
 
+def main_all_cards(card) -> int:
+    """``--all-cards``: the mesh phase over ``paths_mesh()``, one shard on
+    each card, after the one-device runs it is held against (main, f64_main)."""
+    import torch
+    from storage_tpu_torch.parallel.mesh import paths_mesh
+
+    try:
+        main_run = phase_main()
+        f64_counts, recorded64, _, _, f64_peak = phase_f64_main(main_run[1], main_run[2])
+        del recorded64
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = paths_mesh()
+        out = phase_mesh(mesh, main_run, (f64_counts, f64_peak))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print(f"[card] {card}")
+    print(json.dumps({"mesh": str(mesh), "launches": {"mesh": out[0], "mesh_f64": out[1]},
+                      "K1": out[2], "K2": out[3], "K3": out[4]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -19,7 +19,11 @@ float32 (the default) or float64 (``dtype=torch.float64``; each of the three
 kernels has a float64 instantiation, and the draws are the JAX package's
 float64 draws).  Every entry point that takes ``device`` defaults to
 ``"cuda"``; on ``device="cpu"`` the kernels' plain PyTorch versions run.
-``mesh`` is not ported yet.
+``mesh=`` (a ``storage_tpu_torch.parallel.mesh.PathsMesh``, imported by its
+module path as in the JAX package) splits the sims of a valuation over
+several devices in one process: each shard draws its own window of the path
+sets and runs the kernels on it, and the sums over the sims add the shards'
+partials.
 """
 from __future__ import annotations
 

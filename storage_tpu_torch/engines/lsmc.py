@@ -34,6 +34,15 @@ Reference: ``LsmcStorageValuation.Calculate<T>``
 - :func:`fit_policy` runs the backward induction alone and returns the
   fitted :class:`LsmcPolicy`, which can be saved, loaded and handed to
   :func:`reprice` with fresh paths (intraday re-pricing).
+- Under a paths mesh (``run_lsmc(mesh=...)``, :mod:`storage_tpu_torch.parallel.mesh`)
+  the path sets are one tensor (or one streamed window) per shard of the
+  sims, and so are the value surface, the inventories, the PVs and the
+  panels: each kernel runs once per shard on its device, and every sum over
+  the sims (the kernels' partials, the sim-means, the directly solved
+  period's Gram and right-hand side) adds the shards' partials in shard
+  order on the first shard's device before anything divides by ``S``.  What
+  the kernels read beside the sims (tables, coefficients, geometry) is made
+  once there and copied once to each other device.
 
 Deviations from the reference are those of the JAX package: fixed-count
 linspace grids, and the end-period terminal PV read from the valuation path
@@ -54,8 +63,9 @@ from ..ops.backward import assemble_regression, backward_update
 from ..ops.forward import forward_sim, pack_scalars
 from ..ops.interp import fractional_index
 from ..ops.regression import (
-    BasisSpec, design_matrix, fit_continuation, spot_from_factors, standardize_columns,
+    BasisSpec, design_matrix, fit_continuation_shards, spot_from_factors, standardize_shards,
 )
+from ..parallel.mesh import replicate, sims_mean, sum_shards
 from .common import step_economics
 
 NUM_TRIGGER_VOLUMES = 10  # reference numTriggerPriceVolumes (LsmcStorageValuation.cs:367)
@@ -88,7 +98,7 @@ class LsmcArrays(NamedTuple):
     deltas: torch.Tensor  # [n+1] (last entry 0)
     profile_means: torch.Tensor  # [n+1, 6] per-period sim-means of PANEL_FIELDS
     panels: torch.Tensor  # [n+1, 6, S] per-sim panels ([n+1, 6, 0] when not collected)
-    pv_by_sim: torch.Tensor  # [S]
+    pv_by_sim: torch.Tensor  # [S]; panels and pv_by_sim: one tensor per shard under a mesh
     trigger_has_inject: torch.Tensor  # [n] bool
     trigger_has_withdraw: torch.Tensor  # [n] bool
     trigger_inject_volumes: torch.Tensor  # [n, 10]
@@ -194,9 +204,15 @@ def decision_table(coeffs, vbar_next, geom_j, geom_w, cost, price) -> torch.Tens
     return torch.cat([cwa_x, (vbar_d - cost)[..., None], price[..., None]], dim=-1).contiguous()
 
 
+def _as_shards(x) -> list:
+    """A per-sim tensor as the list of its shards: a list as it is, a tensor
+    as a list of one."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 def backward_scan(
-    v_init: torch.Tensor,  # [G, S] value at the period after the last simulated step
-    factors: torch.Tensor,  # [m, F, S] Markov factor states of the decision steps
+    v_init,  # [G, S] value at the period after the last simulated step
+    factors,  # [m, F, S] Markov factor states of the decision steps
     sim_vols: torch.Tensor,  # [m, F]
     sim_drift: torch.Tensor,  # [m]
     geometry,  # _decision_geometry(...) of the same m steps
@@ -208,15 +224,23 @@ def backward_scan(
     The latest period's regression is solved directly (it has no kernel
     partials yet); every kernel launch then updates ``V`` for its period and
     returns the partials from which the previous period's regression is
-    assembled.  Returns ``(v_final [G, S], coeffs [m, B, G], mus [m, B],
+    assembled.  ``v_init`` and ``factors`` may be lists with one tensor per
+    shard of the sims (``[G, S_i]``, ``[m, F, S_i]``, each on its shard's
+    device; the rest lies on the first shard's): the kernel then runs per
+    shard and the partials and sim-means are sums over the shards.  Returns
+    ``(v_final [G, S] (per shard as v_init), coeffs [m, B, G], mus [m, B],
     sds [m, B], vbars [m, G])``.
     """
-    G, S = v_init.shape
-    m = factors.shape[0]
+    v_parts, f_parts = _as_shards(v_init), _as_shards(factors)
+    devices = [v.device for v in v_parts]
+    G = v_parts[0].shape[0]
+    S = sum(v.shape[1] for v in v_parts)
+    m = f_parts[0].shape[0]
     B = spec.num_basis
     geom_j, geom_w, cost, price = geometry
     vols_prev = torch.cat([sim_vols[:1], sim_vols[:-1]], dim=0)
     drift_prev = torch.cat([sim_drift[:1], sim_drift[:-1]], dim=0)
+    geom_j_r, geom_w_r = replicate(devices, geom_j), replicate(devices, geom_w)
 
     def kernel_step(k, coeffs, mu, sd, vbar_next, v_next):
         table = decision_table(coeffs, vbar_next, geom_j[k], geom_w[k], cost[k], price[k])
@@ -225,27 +249,33 @@ def backward_scan(
             torch.cat([sim_drift[k:k + 1], sim_vols[k]]),
             torch.cat([drift_prev[k:k + 1], vols_prev[k]]),
         ]).contiguous()
-        v_this, graw, praw = backward_update(
-            factors[k], factors[max(k - 1, 0)], v_next, table, vbar_next.contiguous(), musd,
-            geom_j[k], geom_w[k], scal, spec=spec,
-        )
+        outs = [backward_update(f[k], f[max(k - 1, 0)], v, t, vb, ms, gj[k], gw[k], sc, spec=spec)
+                for f, v, t, vb, ms, gj, gw, sc in zip(
+                    f_parts, v_next, replicate(devices, table),
+                    replicate(devices, vbar_next.contiguous()), replicate(devices, musd),
+                    geom_j_r, geom_w_r, replicate(devices, scal))]
+        graw, praw = sum_shards([o[1] for o in outs]), sum_shards([o[2] for o in outs])
         # New sim-mean from praw's ones row (centred row sums).
-        return v_this, vbar_next + praw[B] / S, graw, praw, musd
+        return [o[0] for o in outs], vbar_next + praw[B] / S, graw, praw, musd
 
-    coeffs_all = torch.empty((m, B, G), dtype=v_init.dtype, device=v_init.device)
-    mu_all = torch.empty((m, B), dtype=v_init.dtype, device=v_init.device)
+    dtype, device = v_parts[0].dtype, devices[0]
+    coeffs_all = torch.empty((m, B, G), dtype=dtype, device=device)
+    mu_all = torch.empty((m, B), dtype=dtype, device=device)
     sd_all = torch.empty_like(mu_all)
-    vbar_all = torch.empty((m, G), dtype=v_init.dtype, device=v_init.device)
+    vbar_all = torch.empty((m, G), dtype=dtype, device=device)
 
     # Latest period (k = m-1), solved directly.
-    vbar0 = v_init.mean(dim=1)
-    f_last = factors[m - 1]
-    spot = spot_from_factors(f_last, sim_vols[m - 1], sim_drift[m - 1])
-    Xs, mu0, sd0 = standardize_columns(design_matrix(spec, spot, f_last))
-    coeffs0 = fit_continuation(Xs, v_init.T - vbar0[None, :])
+    vbar0 = sims_mean(v_parts, 1)
+    f_last = [f[m - 1] for f in f_parts]
+    designs = [design_matrix(spec, spot_from_factors(fl, vo[m - 1], dr[m - 1]), fl)
+               for fl, vo, dr in zip(f_last, replicate(devices, sim_vols),
+                                     replicate(devices, sim_drift))]
+    Xs, mu0, sd0 = standardize_shards(designs)
+    coeffs0 = fit_continuation_shards(
+        Xs, [v.T - vb[None, :] for v, vb in zip(v_parts, replicate(devices, vbar0))])
     coeffs_all[m - 1], mu_all[m - 1], sd_all[m - 1], vbar_all[m - 1] = coeffs0, mu0, sd0, vbar0
 
-    v, vbar, graw, praw, musd = kernel_step(m - 1, coeffs0, mu0, sd0, vbar0, v_init)
+    v, vbar, graw, praw, musd = kernel_step(m - 1, coeffs0, mu0, sd0, vbar0, v_parts)
     c_prev = vbar0
     for k in range(m - 2, -1, -1):
         # The partials were standardized with musd (period k+1's) and centred
@@ -254,15 +284,18 @@ def backward_scan(
         coeffs_all[k], mu_all[k], sd_all[k], vbar_all[k] = coeffs, mu, sd, vbar
         c_prev = vbar
         v, vbar, graw, praw, musd = kernel_step(k, coeffs, mu, sd, vbar, v)
+    v = v if isinstance(v_init, (list, tuple)) else v[0]
     return v, coeffs_all, mu_all, sd_all, vbar_all
 
 
 def _current_period_step(v_next, dev: LsmcDeviceInputs, interp_kind, num_grid_points,
                          extra_decisions):
     """Backward value at the deterministic current period (reference :171-181,
-    :226-330 with simulatedPrices = forward price).  ``v_next`` is ``[G, S]``."""
+    :226-330 with simulatedPrices = forward price).  ``v_next`` is the list
+    of the shards of ``[G, S]``; so is the value returned, with the mean
+    continuation ``[G]``."""
     G = num_grid_points
-    cont_mean = v_next.mean(dim=1)  # [G]
+    cont_mean = sims_mean(v_next, 1)  # [G]
     econ = step_economics(
         dev.inventory.reshape(1), dev.pillars[0], interp_kind, dev.loss[0],
         dev.space_lo[1], dev.space_hi[1], dev.inject_cost[0], dev.withdraw_cost[0],
@@ -273,31 +306,47 @@ def _current_period_step(v_next, dev: LsmcDeviceInputs, interp_kind, num_grid_po
     fitted = cont_mean[j] * (1.0 - w) + cont_mean[j + 1] * w  # [1, D]
     immediate = econ.immediate_npv(dev.fwd[0])  # [1, D]
     best = torch.argmax(immediate + fitted, dim=1)  # [1], first occurrence
-    j_b = j[0].gather(0, best)
-    w_b = w[0].gather(0, best)
-    # Per-sim actual continuation at the chosen decision.
-    actual = v_next.index_select(0, j_b)[0] * (1.0 - w_b) + v_next.index_select(0, j_b + 1)[0] * w_b
-    return immediate[0].gather(0, best) + actual, cont_mean
+    devices = [v.device for v in v_next]
+    out = []
+    for v, j_b, w_b, imm in zip(v_next, replicate(devices, j[0].gather(0, best)),
+                                replicate(devices, w[0].gather(0, best)),
+                                replicate(devices, immediate[0].gather(0, best))):
+        # Per-sim actual continuation at the chosen decision.
+        actual = v.index_select(0, j_b)[0] * (1.0 - w_b) + v.index_select(0, j_b + 1)[0] * w_b
+        out.append(imm + actual)
+    return out, cont_mean
 
 
 class _FactorAccess(NamedTuple):
     """Uniform span access over a materialised ``[m+1, F, S]`` tensor or a
-    :class:`StreamingFactorSource` (``_factor_access`` of the JAX package)."""
+    :class:`StreamingFactorSource` (``_factor_access`` of the JAX package),
+    either whole or in shards of the sims (a list of tensors, or a source
+    over a paths mesh).  Reads return the list of the shards."""
 
-    get: Callable[[int, int], torch.Tensor]  # (a, b) -> factors [b - a, F, S]
-    last: Callable[[], torch.Tensor]  # () -> [F, S] of the final simulated period
+    get: Callable[[int, int], List[torch.Tensor]]  # (a, b) -> factors [b - a, F, S_i] per shard
+    last: Callable[[], List[torch.Tensor]]  # () -> [F, S_i] of the final simulated period
     num_steps: int  # m + 1
-    num_sims: int
+    num_sims: int  # S, over all shards
     spans: Optional[List[Tuple[int, int]]]  # the source's aligned spans, or None
+    devices: List[torch.device]  # of each shard
+    widths: List[int]  # sims of each shard
+    sharded: bool  # given as shards (results keep them per shard)
 
 
 def _factor_access(factors_or_source) -> _FactorAccess:
     if isinstance(factors_or_source, StreamingFactorSource):
         src = factors_or_source
-        return _FactorAccess(src.factors, src.last, src.num_steps, src.num_sims, src.spans())
-    arr = factors_or_source
-    return _FactorAccess(lambda a, b: arr[a:b], lambda: arr[-1], arr.shape[0], arr.shape[-1],
-                         None)
+        shards = src.mesh is not None
+        windows = src.mesh.windows(src.num_sims) if shards else [(0, src.num_sims)]
+        return _FactorAccess(
+            lambda a, b: _as_shards(src.factors(a, b)), lambda: _as_shards(src.last()),
+            src.num_steps, src.num_sims, src.spans(),
+            list(src.mesh.devices) if shards else [src.device], [w for _, w in windows], shards)
+    parts = _as_shards(factors_or_source)
+    return _FactorAccess(lambda a, b: [p[a:b] for p in parts], lambda: [p[-1] for p in parts],
+                         parts[0].shape[0], sum(p.shape[-1] for p in parts), None,
+                         [p.device for p in parts], [p.shape[-1] for p in parts],
+                         isinstance(factors_or_source, (list, tuple)))
 
 
 def _refine_spans(m: int, num_chunks: int, source_spans) -> List[Tuple[int, int]]:
@@ -332,20 +381,23 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
     """
     G = num_grid_points
     reg = _factor_access(reg_factors)
-    S = reg.num_sims
     m = reg.num_steps - 1  # simulated decision steps
     first = 1 if val_first else 0
     n = m + first
 
     # Terminal values on the end-period grid (reference :107-128), computed on
-    # the regression path set like the backward induction itself.
+    # the regression path set like the backward induction itself; per shard.
     if terminal_fn is None:
-        v = sim_vols.new_zeros((G, S))
+        v = [x.new_zeros((G, w)) for x, w in zip(replicate(reg.devices, sim_vols), reg.widths)]
     else:
-        end_spots = spot_from_factors(reg.last(), sim_vols[-1], sim_drift[-1])
-        v_end = torch.as_tensor(terminal_fn(end_spots[:, None], dev.grids[n][None, :]),
-                                dtype=sim_vols.dtype, device=sim_vols.device)
-        v = v_end.broadcast_to((S, G)).T.contiguous()
+        v = []
+        for last, vols, drift, grid, w in zip(
+                reg.last(), replicate(reg.devices, sim_vols), replicate(reg.devices, sim_drift),
+                replicate(reg.devices, dev.grids[n]), reg.widths):
+            end_spots = spot_from_factors(last, vols[-1], drift[-1])
+            v_end = torch.as_tensor(terminal_fn(end_spots[:, None], grid[None, :]),
+                                    dtype=vols.dtype, device=vols.device)
+            v.append(v_end.broadcast_to((w, G)).T.contiguous())
 
     if m:
         spans = _refine_spans(m, num_chunks, reg.spans)
@@ -360,15 +412,16 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
         coeffs, mus, sds, vbars = (torch.cat(x, dim=0) for x in zip(*parts))
     else:
         B = spec.num_basis
-        coeffs = v.new_zeros((0, B, G))
-        mus, sds, vbars = v.new_zeros((0, B)), v.new_zeros((0, B)), v.new_zeros((0, G))
+        coeffs = sim_vols.new_zeros((0, B, G))
+        mus, sds, vbars = (sim_vols.new_zeros((0, B)), sim_vols.new_zeros((0, B)),
+                           sim_vols.new_zeros((0, G)))
 
     if val_first:
         v0, cont_mean0 = _current_period_step(v, dev, interp_kind, G, extra_decisions)
-        backward_npv = v0.mean()
+        backward_npv = sims_mean(v0)
     else:
-        cont_mean0 = v.new_zeros((G,))
-        backward_npv = v[0].mean()
+        cont_mean0 = sim_vols.new_zeros((G,))
+        backward_npv = sims_mean([x[0] for x in v])
     return backward_npv, cont_mean0, coeffs, mus, sds, vbars
 
 
@@ -521,14 +574,16 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
                      num_chunks: int = 1,
                      after_span: Optional[Callable[[float], None]] = None) -> LsmcArrays:
     """Forward pass through the ``forward_sim`` kernel over the valuation
-    path set (a tensor ``[m+1, F, S]`` or a :class:`StreamingFactorSource`),
-    one launch per span (:func:`_refine_spans`; default: one span over the
-    horizon), then result assembly (structure of the JAX package's
-    ``_forward_program_pallas``).
+    path set (a tensor ``[m+1, F, S]`` or a :class:`StreamingFactorSource`,
+    whole or in shards of the sims), one launch per span and shard
+    (:func:`_refine_spans`; default: one span over the horizon), then result
+    assembly (structure of the JAX package's ``_forward_program_pallas``).
+    The kernel's per-step sums are added over the shards before anything
+    divides by ``S``; inventories, PVs and panels stay per shard.
 
     With ``collect_panels`` the kernel writes each span's rows of one
-    ``[n+1, 6, S]`` buffer; the current-period row (every sim takes the same
-    decision there) and the end row are filled here.
+    ``[n+1, 6, S]`` buffer (per shard); the current-period row (every sim
+    takes the same decision there) and the end row are filled here.
     """
     G = num_grid_points
     val = _factor_access(val_factors)
@@ -537,13 +592,19 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
     first = 1 if val_first else 0
     n = m + first
     dfd = dev.df_settle if discount_deltas else torch.ones_like(dev.df_settle)
-    panels = sim_vols.new_empty((n + 1, 6, S if collect_panels else 0))
+
+    def rep(x):
+        return replicate(val.devices, x)
+
+    panels = [x.new_empty((n + 1, 6, w if collect_panels else 0))
+              for x, w in zip(rep(sim_vols), val.widths)]
 
     if val_first:
         inv0, pv0, outputs0 = _step0_single_sim(cont_mean0, dev, dfd[0], interp_kind, G,
                                                  extra_decisions)
         if collect_panels:
-            panels[0] = outputs0[0][0, :, None]  # the single sim's fields, for every sim
+            for p, row in zip(panels, rep(outputs0[0][0, :, None])):
+                p[0] = row  # the single sim's fields, for every sim
     else:
         inv0, pv0, outputs0 = dev.inventory, dev.inventory.new_zeros(()), None
 
@@ -556,56 +617,65 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
         dev.cons_withdraw[first:n], dev.inv_cost_rate[first:n], dev.df_settle[first:n],
         dev.df_start[first:n], sim_drift[:m], sim_vols[:m],
     )
+    per_device = list(zip(rep(tables), rep(mus), rep(sds), rep(pillars), rep(scalars)))
     spans = _refine_spans(m, num_chunks, val.spans) if m else [(0, 0)]
-    inv = inv0.reshape(1).expand(S).contiguous()
-    pv_total = torch.zeros_like(inv)
+    inv = [x.reshape(1).expand(w).contiguous() for x, w in zip(rep(inv0), val.widths)]
+    pv_total = [torch.zeros_like(x) for x in inv]
     sums_parts, xsums_parts = [], []
     for i, (a, b) in enumerate(spans):
-        sums, xsums, inv, pv = forward_sim(
-            val.get(a, b), inv, tables[a:b], mus[a:b], sds[a:b], pillars[a:b],
-            scalars[a:b], spec=spec, interp_kind=interp_kind, num_grid=G,
-            extra_decisions=extra_decisions,
-            panels=panels[first + a:first + b] if collect_panels else None,
-        )
-        pv_total = pv_total + pv
-        sums_parts.append(sums)
-        xsums_parts.append(xsums)
+        outs = [forward_sim(
+            f, iv, tb[a:b], mu[a:b], sd[a:b], pl[a:b], sc[a:b], spec=spec,
+            interp_kind=interp_kind, num_grid=G, extra_decisions=extra_decisions,
+            panels=p[first + a:first + b] if collect_panels else None,
+        ) for f, iv, (tb, mu, sd, pl, sc), p in zip(val.get(a, b), inv, per_device, panels)]
+        pv_total = [t + o[3] for t, o in zip(pv_total, outs)]
+        inv = [o[2] for o in outs]
+        sums_parts.append(sum_shards([o[0] for o in outs]))
+        xsums_parts.append(sum_shards([o[1] for o in outs]))
         if after_span is not None:
             after_span(BACKWARD_PCNT_TIME + (1.0 - BACKWARD_PCNT_TIME) * (i + 1) / len(spans))
-    pv_by_sim = pv_total + pv0
+    pv_by_sim = [t + p for t, p in zip(pv_total, rep(pv0))]
     _check_forward_health(pv_by_sim, inv, backward_npv)
     stacked = _stacked_outputs(torch.cat(sums_parts), torch.cat(xsums_parts), tables, dev, dfd,
                                first, n, S, interp_kind, G, extra_decisions)
     if val_first:
         stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(outputs0, stacked))
-    end_spots = spot_from_factors(val.last(), sim_vols[-1], sim_drift[-1])
-    return _assemble_arrays(stacked, inv, pv_by_sim, end_spots, terminal_fn, backward_npv,
-                            panels)
+    end_spots = [spot_from_factors(last, vols[-1], drift[-1]) for last, vols, drift in
+                 zip(val.last(), rep(sim_vols), rep(sim_drift))]
+    arrays = _assemble_arrays(stacked, inv, pv_by_sim, end_spots, terminal_fn, backward_npv,
+                              panels)
+    if not val.sharded:
+        arrays = arrays._replace(pv_by_sim=arrays.pv_by_sim[0], panels=arrays.panels[0])
+    return arrays
 
 
 def _assemble_arrays(stacked, inv_final, pv_by_sim, end_spots, terminal_fn,
                      backward_npv, panels) -> LsmcArrays:
+    """The run's arrays from the stacked per-step outputs and the per-shard
+    lists ``inv_final``, ``pv_by_sim``, ``end_spots`` and ``panels``."""
     (means_rows, deltas_rows, has_inj, inj_vols, inj_prices,
      has_wdr, wdr_vols, wdr_prices) = stacked
-    S = inv_final.shape[0]
 
     # End-period terminal PV (reference :563-579; valuation sims here, see
     # module docstring).
-    if terminal_fn is not None:
-        terminal_pv = torch.as_tensor(terminal_fn(end_spots, inv_final), dtype=inv_final.dtype,
-                                      device=inv_final.device).broadcast_to((S,))
-    else:
-        terminal_pv = torch.zeros_like(inv_final)
-    pv_by_sim = pv_by_sim + terminal_pv
+    terminal = []
+    for inv, spots in zip(inv_final, end_spots):
+        if terminal_fn is not None:
+            terminal.append(torch.as_tensor(terminal_fn(spots, inv), dtype=inv.dtype,
+                                            device=inv.device).broadcast_to(inv.shape))
+        else:
+            terminal.append(torch.zeros_like(inv))
+    pv_by_sim = [pv + t for pv, t in zip(pv_by_sim, terminal)]
 
-    zero = inv_final.new_zeros(())
-    end_means = torch.stack([inv_final.mean(), zero, zero, zero, zero, terminal_pv.mean()])
-    if panels.shape[-1]:
-        panels[-1] = 0.0
-        panels[-1, 0] = inv_final
-        panels[-1, 5] = terminal_pv
+    zero = means_rows.new_zeros(())
+    end_means = torch.stack([sims_mean(inv_final), zero, zero, zero, zero, sims_mean(terminal)])
+    for p, inv, t in zip(panels, inv_final, terminal):
+        if p.shape[-1]:
+            p[-1] = 0.0
+            p[-1, 0] = inv
+            p[-1, 5] = t
     return LsmcArrays(
-        npv=pv_by_sim.mean(),
+        npv=sims_mean(pv_by_sim),
         backward_npv=backward_npv,
         deltas=torch.cat([deltas_rows, deltas_rows.new_zeros((1,))]),
         profile_means=torch.cat([means_rows, end_means[None]], dim=0),
@@ -658,16 +728,17 @@ def _check_forward_health(pv, inv_final, backward_npv) -> None:
     """Forward-side twin of :func:`_check_backward_health`: non-finite per-sim
     PVs raise; so do PV and inventory paths that are identically zero while
     the backward estimate is not (a facility whose value is entirely
-    terminal keeps a non-zero final inventory)."""
+    terminal keeps a non-zero final inventory).  ``pv`` and ``inv_final`` are
+    lists of shards; one device->host fetch."""
+    flags = torch.stack([torch.stack([
+        torch.isfinite(p).all(), (p != 0.0).any(), (i != 0.0).any(),
+    ]).to(backward_npv.device) for p, i in zip(pv, inv_final)])
     finite_p, nonzero_p, inv_nonzero, back_zero = torch.stack([
-        torch.isfinite(pv).all(),
-        (pv != 0.0).any(),
-        (inv_final != 0.0).any(),
-        backward_npv.abs() < 1e-9,
+        flags[:, 0].all(), flags[:, 1].any(), flags[:, 2].any(), backward_npv.abs() < 1e-9,
     ]).tolist()
     if not finite_p:
         raise StorageError("Forward simulation produced non-finite per-simulation PVs.")
-    if pv.numel() and not nonzero_p and not inv_nonzero and not back_zero:
+    if sum(p.numel() for p in pv) and not nonzero_p and not inv_nonzero and not back_zero:
         raise StorageError(
             "Forward simulation PV and inventory paths are identically zero while "
             "the backward estimate is not; a silently-wrong NPV must not be returned."
@@ -682,16 +753,19 @@ def _chunk_bounds(n: int, num_chunks: int) -> List[Tuple[int, int]]:
     return [(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:]) if b > a]
 
 
-def _span_hook(device, on_progress_update, cancelled) -> Callable[[float], None]:
-    """The host's turn after each span: wait for the span's kernels (so that
-    progress means work done and a cancel lands at once), check the
-    cancellation hook, report progress."""
+def _span_hook(devices, on_progress_update, cancelled) -> Callable[[float], None]:
+    """The host's turn after each span: wait for the span's kernels on every
+    CUDA device of ``devices`` (one event each, recorded after every shard's
+    launches; so that progress means work done and a cancel lands at once),
+    check the cancellation hook, report progress."""
+    cuda_devices = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
 
     def after_span(frac: float) -> None:
-        if device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            done.synchronize()
+        done = [torch.cuda.Event() for _ in cuda_devices]
+        for event, device in zip(done, cuda_devices):
+            event.record(torch.cuda.current_stream(device))
+        for event in done:
+            event.synchronize()
         if cancelled is not None and cancelled():
             raise ValuationCancelledError("Storage valuation was cancelled.")
         if on_progress_update is not None:
@@ -711,8 +785,9 @@ def _program_statics(ctx: ValuationContext, spec: BasisSpec, extra_decisions: in
 
 def _on_device(x, device, dtype=torch.float32):
     """``x`` as a contiguous tensor of ``dtype`` on ``device``; a streaming
-    source (which lives on its own device, in its own dtype) as it is."""
-    if isinstance(x, StreamingFactorSource):
+    source (which lives on its own device, in its own dtype) or a list of
+    shards (each on its shard's device) as it is."""
+    if isinstance(x, (StreamingFactorSource, list, tuple)):
         return x
     return torch.as_tensor(x, dtype=dtype).to(device).contiguous()
 
@@ -732,10 +807,15 @@ def run_lsmc(
     collect_panels: bool = False,
     stopwatches=None,
     dtype=torch.float32,
+    mesh=None,
 ) -> LsmcArrays:
     """Run backward induction + forward simulation on one device, in
     ``dtype`` (float32 or float64: the kernels' instantiation of that type;
-    the path-set factories must return paths of it).
+    the path-set factories must return paths of it).  With ``mesh`` (a
+    :class:`~storage_tpu_torch.parallel.mesh.PathsMesh`) the factories return
+    the path sets in shards over its devices (lists of tensors, or sources
+    over the mesh), the kernels run per shard, and what is not per sim runs
+    on the mesh's first device (``device`` is not used).
 
     ``reg_sims``/``val_sims`` are factories so the regression path set can be
     freed before the valuation set is simulated — at production path counts
@@ -746,13 +826,14 @@ def run_lsmc(
     A factory that returns a :class:`StreamingFactorSource` makes its pass
     walk the source's spans instead, with or without hooks.
     """
-    device = torch.device(device)
+    devices = [torch.device(device)] if mesh is None else list(mesh.devices)
+    device = devices[0]
     dev = device_inputs(ctx, device, dtype)
     statics = _program_statics(ctx, spec, extra_decisions)
     sim_vols, sim_drift = _on_device(sim_vols, device, dtype), _on_device(sim_drift, device, dtype)
     chunked = on_progress_update is not None or cancelled is not None
     num_chunks = NUM_PROGRESS_CHUNKS if chunked else 1
-    after_span = _span_hook(device, on_progress_update, cancelled) if chunked else None
+    after_span = _span_hook(devices, on_progress_update, cancelled) if chunked else None
 
     reg_factors = reg_sims() if callable(reg_sims) else reg_sims
     if stopwatches is not None:

@@ -17,15 +17,17 @@ Random numbers: the JAX package draws with ``jax.random`` (threefry2x32 in
 its "partitionable" bit layout, normals as ``sqrt(2) * erf_inv(u)``).  This
 module reproduces that generator, so that the port draws the same paths from
 the same seed: the same ``fold_in`` block keying, the same bits-to-uniform
-map and XLA's float32 ``erf_inv`` polynomial (``torch.erfinv`` differs by
-~2e-5).  In float64 (``dtype=torch.float64``) a draw takes both 32-bit words
-of the hash as one 64-bit word, keeps 52 mantissa bits, and goes through
-XLA's float64 ``erf_inv`` (Giles' three-range expansion) and XLA's
-``log1p`` (a rational approximation below ``sqrt(2) - 1``, ``log(1 + x)``
-above it), rounded as XLA's CPU code rounds them: each polynomial step, and
-the OU update after its first product, one fused multiply-add (:func:`_fma`,
-exact in separately rounded float64 ops), every other step on its own.  So
-the float64 draws are the JAX package's bit for bit wherever the platform's
+map, XLA's ``erf_inv`` polynomials (``torch.erfinv`` differs by ~2e-5) and
+XLA's ``log1p`` (a rational approximation below ``sqrt(2) - 1``, ``log(1 +
+x)`` above it), rounded as XLA's CPU code rounds them: each polynomial step,
+and the OU update after its first product, one fused multiply-add (exact, in
+separately rounded float64 torch ops: :func:`_fma`, :func:`_fma32`), every
+other step on its own.  In float32 the ``log`` of ``log1p``'s upper branch
+is XLA's own (Cephes' ``logf``, :func:`_xla_logf`) and the square root the
+correctly rounded one; in float64 (``dtype=torch.float64``) a draw takes
+both 32-bit words of the hash as one 64-bit word, keeps 52 mantissa bits,
+and goes through Giles' three-range expansion.  So the float32 draws are
+the JAX package's bit for bit, and the float64 ones wherever the platform's
 ``log`` and ``sqrt`` agree with XLA's.
 
 :func:`simulate_factor_paths` sends a CUDA device to one fused kernel
@@ -263,6 +265,14 @@ def _two_sum(a: torch.Tensor, b: torch.Tensor):
     return s, (a - (s - bb)) + (b - bb)
 
 
+def _round_to_odd(v: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``v`` rounded to odd given the error ``e`` of the sum it rounds: an
+    inexact sum whose last bit is even steps one ulp toward the exact value."""
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(v, float("inf")), torch.full_like(v, -float("inf")))
+    return torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+
+
 def _fma(a, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once, as the card's DFMA computes it, from float64
     torch ops that each round on their own (Boldo and Melquiond, "Emulation
@@ -280,32 +290,82 @@ def _fma(a, b, c: torch.Tensor) -> torch.Tensor:
     bh, bl = _split(b)
     ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
     th, tl = _two_sum(c, uh)
-    v, e = _two_sum(tl, ul)
-    # Round to odd: an inexact sum whose last bit is even steps one ulp
-    # toward the exact value.
-    even = (v.view(torch.int64) & 1) == 0
-    toward = torch.where(e > 0, torch.full_like(v, float("inf")), torch.full_like(v, -float("inf")))
-    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    v = _round_to_odd(*_two_sum(tl, ul))
     # v == 0: the sum is th exactly, with th's sign of zero (th + 0 would
     # turn -0 into +0).
     return torch.where(v == 0, th, th + v)
 
 
-def _xla_log1p(x: torch.Tensor, log=torch.log) -> torch.Tensor:
-    """XLA's float64 ``log1p``: the Cephes rational approximation below
-    ``sqrt(2) - 1`` in magnitude, ``log(1 + x)`` above it, rounded as XLA's
-    CPU code rounds it: each Horner step of P and Q one fused multiply-add,
-    every other product, sum and the division on its own.  The inner sum
-    ``-0.5 x^2 + x^3 P / Q`` is the same whether it is fused or not, since
-    ``-0.5 x^2`` is exact; fusing the other product,
+def _fma32(a, b, c: torch.Tensor) -> torch.Tensor:
+    """The float32 ``a * b + c`` rounded once, as the card's FFMA computes it:
+    the product of two float32 values is exact in float64, their sum with
+    ``c`` is rounded to odd there (TwoSum), and one rounding to float32
+    follows, which is then correct (Boldo and Melquiond, as :func:`_fma`:
+    53 >= 2 x 24 + 2 bits).  ``a`` or ``b`` may be a Python float, rounded
+    to float32 first as torch rounds a scalar."""
+    a, b = (torch.as_tensor(t, dtype=torch.float32, device=c.device) for t in (a, b))
+    return _round_to_odd(*_two_sum(a.double() * b.double(), c.double())).float()
+
+
+def _fused(dtype):
+    """The exact fused multiply-add of ``dtype``."""
+    return _fma if dtype == torch.float64 else _fma32
+
+
+# XLA's float32 log on the CPU: Cephes' logf (the mantissa m in [sqrt(1/2),
+# sqrt(2)) as a polynomial in m - 1 in three interleaved Horner chains, the
+# exponent's ln 2 split in two).
+_LOGF_SQRTHF = 0.707106781186547524
+_LOGF_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+           1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+           3.3333331174e-1)
+_LOGF_Q1, _LOGF_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _xla_logf(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log`` of positive normal ``x`` as its CPU code computes
+    it (not correctly rounded: it differs from a rounded ``log`` on ~7% of
+    the arguments ``log1p`` meets), each multiply-add of the polynomial one
+    float32 FMA (:func:`_fma32`), every other step on its own.
+    ``ops/csrc/path_sim.cu`` (``xla_logf``) evaluates the same steps."""
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)  # in [1/2, 1)
+    below = m < _LOGF_SQRTHF
+    e = e - below.float()
+    m = (m - 1.0) + torch.where(below, m, torch.zeros_like(m))
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOGF_P
+    y, y1, y2 = _fma32(m, p[0], torch.full_like(m, p[1])), \
+        _fma32(m, p[3], torch.full_like(m, p[4])), _fma32(m, p[6], torch.full_like(m, p[7]))
+    y, y1, y2 = _fma32(y, m, torch.full_like(m, p[2])), _fma32(y1, m, torch.full_like(m, p[5])), \
+        _fma32(y2, m, torch.full_like(m, p[8]))
+    y = _fma32(_fma32(y, x3, y1), x3, y2)
+    y = _fma32(y, x3, _LOGF_Q1 * e)
+    return ((m - 0.5 * x2) + y) + _LOGF_Q2 * e
+
+
+def _xla_log1p(x: torch.Tensor, log=None) -> torch.Tensor:
+    """XLA's ``log1p`` (float32 or float64): the Cephes rational
+    approximation below ``sqrt(2) - 1`` in magnitude, ``log(1 + x)`` above
+    it, rounded as XLA's CPU code rounds it: each Horner step of P and Q one
+    fused multiply-add, every other product, sum and the division on its
+    own.  The inner sum ``-0.5 x^2 + x^3 P / Q`` is the same whether it is
+    fused or not, since ``-0.5 x^2`` is exact; fusing the other product,
     ``fma(x^3, P / Q, -0.5 x^2)``, is not what XLA computes (a search over
-    millions of arguments tells the forms apart).  ``log`` is a seam for
-    tests (XLA's own ``log`` on the same argument); ``ops/csrc/path_sim.cu``
-    evaluates the same steps."""
+    millions of arguments tells the forms apart).  ``log`` defaults to
+    XLA's own float32 ``log`` (:func:`_xla_logf`) in float32 and to
+    ``torch.log`` in float64; it is a seam for tests (XLA's own ``log`` on
+    the same argument).  ``ops/csrc/path_sim.cu`` evaluates the same steps."""
+    fma = _fused(x.dtype)
+    if log is None:
+        log = _xla_logf if x.dtype == torch.float32 else torch.log
+
     def horner(coefs):
         p = torch.zeros_like(x)
         for c in coefs:
-            p = _fma(p, x, torch.full_like(x, c))
+            p = fma(p, x, torch.full_like(x, c))
         return p
 
     x2 = x * x
@@ -313,7 +373,7 @@ def _xla_log1p(x: torch.Tensor, log=torch.log) -> torch.Tensor:
     return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
 
 
-def _erf_inv_f64(x: torch.Tensor, log=torch.log, sqrt=torch.sqrt) -> torch.Tensor:
+def _erf_inv_f64(x: torch.Tensor, log=None, sqrt=torch.sqrt) -> torch.Tensor:
     """XLA's float64 ``erf_inv`` (Giles' three-range expansion), each Horner
     step one fused multiply-add as XLA's CPU code computes it.  ``log`` goes
     to :func:`_xla_log1p`; ``sqrt``, of the two outer ranges, is a seam for
@@ -346,13 +406,19 @@ def _erf_inv_f64(x: torch.Tensor, log=torch.log, sqrt=torch.sqrt) -> torch.Tenso
 
 
 def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``erf_inv`` (the Giles polynomial pair)."""
-    w = -torch.log1p(-x * x)
+    """XLA's float32 ``erf_inv`` (the Giles polynomial pair) as XLA's CPU code
+    computes it: ``w = -log1p(-x^2)`` through XLA's ``log1p``
+    (:func:`_xla_log1p`), each Horner step one float32 FMA (:func:`_fma32`),
+    and the correctly rounded square root (torch's float32 ``sqrt`` on the
+    CPU is not, on ~0.6% of arguments; the float64 root rounded once more
+    is: 53 >= 2 x 24 + 2 bits).  ``ops/csrc/path_sim.cu`` (``erf_inv_rn``)
+    evaluates the same steps with ``__fmaf_rn`` and ``__fsqrt_rn``."""
+    w = -_xla_log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(lt, x.new_tensor(_ERFINV_LT5[0]), x.new_tensor(_ERFINV_GE5[0]))
     for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = torch.where(lt, x.new_tensor(c_lt), x.new_tensor(c_ge)) + p * w
+        p = _fma32(p, w, torch.where(lt, x.new_tensor(c_lt), x.new_tensor(c_ge)))
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
@@ -402,42 +468,48 @@ _DRAW_BLOCK = 16
 
 
 def _block_normals(key, b0: int, num_factors: int, num_sims: int, antithetic: bool,
-                   device, dtype=torch.float32) -> torch.Tensor:
+                   device, dtype=torch.float32, window=None) -> torch.Tensor:
     """Normals for the draw block starting at step ``b0`` — always the full
     ``[_DRAW_BLOCK, F, S]`` shape (callers slice partial tail blocks), since
-    threefry values depend on the requested shape."""
+    threefry values depend on the requested shape.  With ``window = (sim0,
+    local)`` only those columns are returned (drawn as part of the whole
+    block: slow, and right)."""
     k = fold_in(key, b0)
     if antithetic:
         half = (num_sims + 1) // 2
         z = normal(k, (_DRAW_BLOCK, num_factors, half), device, dtype)
-        return torch.cat([z, -z], dim=-1)[:, :, :num_sims]
-    return normal(k, (_DRAW_BLOCK, num_factors, num_sims), device, dtype)
+        z = torch.cat([z, -z], dim=-1)[:, :, :num_sims]
+    else:
+        z = normal(k, (_DRAW_BLOCK, num_factors, num_sims), device, dtype)
+    return z if window is None else z[:, :, window[0]:window[0] + window[1]]
 
 
 def _ou_steps(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int], antithetic: bool,
               device, y0: Optional[torch.Tensor], step0: int, num_steps: int,
-              dtype=torch.float32):
+              dtype=torch.float32, window=None):
     """Yield ``(i, y)``: the factor state ``[F, S]`` after local step ``i`` of
     the ``num_steps`` steps from absolute step ``step0`` (a multiple of the
     draw block), entered with state ``y0`` (None: zeros).  Each ``y`` is a new
-    tensor of ``dtype``."""
+    tensor of ``dtype``.  With ``window = (sim0, local)``: the states of those
+    sims of the ``num_sims``, ``[F, local]``."""
     if step0 % _DRAW_BLOCK:
         raise ValueError(f"step0 ({step0}) must be a multiple of {_DRAW_BLOCK}.")
     num_factors = coeffs.decay.shape[1]
-    fused = _fma if dtype == torch.float64 else (lambda a, b, c: a * b + c)
+    fused = _fused(dtype)
     decay = torch.as_tensor(coeffs.decay, dtype=dtype).to(device)
     chol = torch.as_tensor(coeffs.chol, dtype=dtype).to(device)
     if y0 is None:
-        y = torch.zeros((num_factors, num_sims), dtype=dtype, device=device)
+        width = num_sims if window is None else window[1]
+        y = torch.zeros((num_factors, width), dtype=dtype, device=device)
     else:
         y = y0
     for b0 in range(step0, step0 + num_steps, _DRAW_BLOCK):
-        z_b = _block_normals(key, b0, num_factors, num_sims, antithetic, device, dtype)
+        z_b = _block_normals(key, b0, num_factors, num_sims, antithetic, device, dtype, window)
         for c in range(min(_DRAW_BLOCK, step0 + num_steps - b0)):
             k = b0 + c
             # Exact OU update: decay + correlated increment, the rank-F
-            # contraction written out (F is tiny).  In float64 its later
-            # products are fused into the sums, as XLA's CPU code fuses them.
+            # contraction written out (F is tiny).  Its later products are
+            # fused into the sums, as XLA's CPU code fuses them.
             inc = chol[k, :, 0, None] * z_b[c, 0]
             for f in range(1, num_factors):
                 inc = fused(chol[k, :, f, None], z_b[c, f], inc)
@@ -456,18 +528,21 @@ def simulate_factor_paths_reference(
     step0: int = 0,
     num_steps: Optional[int] = None,
     dtype=torch.float32,
+    window: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the path kernel: factor paths ``[n, F, S]``
     of ``dtype`` (float32 or float64) on ``device`` for the threefry
     ``key``.  With ``y0``/``step0``/``num_steps``: the steps
     ``[step0, step0 + num_steps)`` of the horizon entered with state
-    ``y0 [F, S]`` (``step0`` a multiple of 16)."""
+    ``y0 [F, S]`` (``step0`` a multiple of 16).  With ``window = (sim0,
+    local)``: only those columns of the ``num_sims`` (``y0 [F, local]``)."""
     num_factors = coeffs.decay.shape[1]
     if num_steps is None:
         num_steps = coeffs.decay.shape[0] - step0
-    out = torch.empty((num_steps, num_factors, num_sims), dtype=dtype, device=device)
+    width = num_sims if window is None else window[1]
+    out = torch.empty((num_steps, num_factors, width), dtype=dtype, device=device)
     for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, y0, step0, num_steps,
-                          dtype):
+                          dtype, window):
         out[i] = y
     return out
 
@@ -478,15 +553,18 @@ def _num_checkpoints(num_steps: int, every: int) -> int:
 
 def factor_checkpoints_reference(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
                                  antithetic: bool, every: int, device=None,
-                                 dtype=torch.float32) -> torch.Tensor:
+                                 dtype=torch.float32, window=None) -> torch.Tensor:
     """Plain PyTorch version of the path kernel's checkpoint mode: the factor
     states ENTERING steps ``0, every, 2 every, ...`` as ``[num_ckpt, F, S]``
-    (``every`` a multiple of 16)."""
+    (``every`` a multiple of 16); with ``window = (sim0, local)`` only those
+    columns, ``[num_ckpt, F, local]``."""
     n, num_factors = coeffs.decay.shape
     num_ckpt = _num_checkpoints(n, every)
-    out = torch.zeros((num_ckpt, num_factors, num_sims), dtype=dtype, device=device)
+    width = num_sims if window is None else window[1]
+    out = torch.zeros((num_ckpt, num_factors, width), dtype=dtype, device=device)
     last = (num_ckpt - 1) * every  # no state entered after it is kept
-    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, None, 0, last, dtype):
+    for i, y in _ou_steps(coeffs, num_sims, key, antithetic, device, None, 0, last, dtype,
+                          window):
         if (i + 1) % every == 0:
             out[(i + 1) // every] = y
     return out
@@ -518,13 +596,16 @@ def _path_kernel_tables(coeffs: SimCoefficients, key: Tuple[int, int], device,
 
 def _launch_path_sim(tables: _PathKernelTables, out: torch.Tensor, num_sims: int,
                      antithetic: bool, y0: Optional[torch.Tensor] = None, step0: int = 0,
-                     num_steps: Optional[int] = None, every: int = 0) -> torch.Tensor:
+                     num_steps: Optional[int] = None, every: int = 0,
+                     window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One launch of ``path_sim_kernel`` into ``out`` (CUDA only; the float32
     or the float64 mode, by ``out``'s dtype): the steps
     ``[step0, step0 + num_steps)`` entered with ``y0`` (None: zeros); paths
-    when ``every`` is 0, else the checkpoints every ``every`` steps."""
+    when ``every`` is 0, else the checkpoints every ``every`` steps.  With
+    ``window = (sim0, local)`` the kernel's window mode: only those columns of
+    the ``num_sims`` (``out [., F, local]``, ``y0 [F, local]``)."""
     from ..ops import count_launch
-    from ..ops.csrc import check_dtype, check_launch, check_operand, kernels
+    from ..ops.csrc import check_dtype, check_launch, check_operand, kernels, on_device
 
     device = out.device
     if device.type != "cuda":
@@ -540,37 +621,56 @@ def _launch_path_sim(tables: _PathKernelTables, out: torch.Tensor, num_sims: int
     if not 0 <= step0 <= step0 + num_steps <= tables.num_steps:
         raise ValueError(f"steps [{step0}, {step0 + num_steps}) lie outside the horizon "
                          f"of {tables.num_steps} steps.")
+    if window is not None and not (0 <= window[0] and window[1] >= 1
+                                   and window[0] + window[1] <= num_sims):
+        raise ValueError(f"window {window} lies outside the {num_sims} sims")
+    width = num_sims if window is None else window[1]
     rows = _num_checkpoints(num_steps, every) if every else num_steps
-    check_operand("out", out, (rows, F, num_sims), out.dtype)
+    check_operand("out", out, (rows, F, width), out.dtype)
     check_operand("coef", tables.coef, (tables.num_steps, F + F * F), out.dtype)
     if y0 is not None:
-        check_operand("y0", y0, (F, num_sims), out.dtype)
+        check_operand("y0", y0, (F, width), out.dtype)
     if out.numel() == 0:
         return out
     draw_sims = (num_sims + 1) // 2 if antithetic else num_sims
     if _DRAW_BLOCK * F * draw_sims >= 2**32:
         raise ValueError("random_bits supports fewer than 2**32 elements.")
-    launch = kernels().path_sim_launch if out.dtype == torch.float32 else \
-        kernels().path_sim_f64_launch
-    with torch.cuda.device(device):
-        err = launch(
-            tables.keys.data_ptr(), tables.coef.data_ptr(),
-            None if y0 is None else y0.data_ptr(), out.data_ptr(), num_sims, draw_sims, step0,
-            num_steps, F, every, torch.cuda.current_stream(device).cuda_stream)
+    f64 = out.dtype == torch.float64
+    lib = kernels()
+    args = [tables.keys.data_ptr(), tables.coef.data_ptr(),
+            None if y0 is None else y0.data_ptr(), out.data_ptr(), num_sims, draw_sims]
+    if window is None:
+        launch = lib.path_sim_f64_launch if f64 else lib.path_sim_launch
+    else:
+        launch = lib.path_sim_f64_window_launch if f64 else lib.path_sim_window_launch
+        args += list(window)
+    with on_device(device):
+        err = launch(*args, step0, num_steps, F, every,
+                     torch.cuda.current_stream(device).cuda_stream)
     check_launch("path_sim", err)
     count_launch("path_sim")
     return out
 
 
 def _simulate_factor_paths_cuda(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
-                                antithetic: bool, device, dtype=torch.float32) -> torch.Tensor:
-    """Launch ``path_sim_kernel`` (CUDA devices only): one thread per drawn
-    sim, one launch per path set."""
+                                antithetic: bool, device, dtype=torch.float32,
+                                window: Optional[Tuple[int, int]] = None,
+                                tables: Optional[_PathKernelTables] = None) -> torch.Tensor:
+    """Launch ``path_sim_kernel`` (CUDA devices only): one launch per path set,
+    or per window of it."""
     device = torch.device(device)
     n, num_factors = coeffs.decay.shape
-    out = torch.empty((n, num_factors, num_sims), dtype=dtype, device=device)
-    return _launch_path_sim(_path_kernel_tables(coeffs, key, device, dtype), out, num_sims,
-                            antithetic)
+    width = num_sims if window is None else window[1]
+    out = torch.empty((n, num_factors, width), dtype=dtype, device=device)
+    if tables is None:
+        tables = _path_kernel_tables(coeffs, key, device, dtype)
+    return _launch_path_sim(tables, out, num_sims, antithetic, window=window)
+
+
+def _mesh_windows(mesh, num_sims: int):
+    """``[(device, window), ...]`` of a paths mesh's shards: each entry's
+    device and ``(sim0, local)``."""
+    return list(zip(mesh.devices, mesh.windows(num_sims)))
 
 
 def simulate_factor_paths(
@@ -581,6 +681,7 @@ def simulate_factor_paths(
     key: Optional[Tuple[int, int]] = None,
     device="cuda",
     dtype=torch.float32,
+    mesh=None,
 ) -> torch.Tensor:
     """Simulate Markov factor state paths ``[n, F, S]`` of ``dtype`` (float32
     or float64) on ``device``.
@@ -588,11 +689,28 @@ def simulate_factor_paths(
     Draws are those of the JAX package for the same threefry key and dtype:
     the default key is ``prng_key(seed)``.  A CUDA device goes to the
     kernel; ``device="cpu"`` to :func:`simulate_factor_paths_reference`.
+    With ``mesh`` (a :class:`~storage_tpu_torch.parallel.mesh.PathsMesh`) the
+    result is one tensor ``[n, F, S / shards]`` per shard, on its entry's
+    device: each shard draws only its window of the path set (the kernel's
+    window mode), the same columns bit for bit; ``device`` is not used.
     """
     if key is None:
         if seed is None:
             seed = np.random.SeedSequence().entropy % (2**63)
         key = prng_key(int(seed))
+    if mesh is not None:
+        tables = {}
+        out = []
+        for dev, window in _mesh_windows(mesh, num_sims):
+            if dev.type == "cpu":
+                out.append(simulate_factor_paths_reference(coeffs, num_sims, key, antithetic,
+                                                           dev, dtype=dtype, window=window))
+            else:
+                if dev not in tables:
+                    tables[dev] = _path_kernel_tables(coeffs, key, dev, dtype)
+                out.append(_simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, dev,
+                                                       dtype, window, tables[dev]))
+        return out
     if torch.device(device).type == "cpu":
         return simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, device,
                                                dtype=dtype)
@@ -614,32 +732,40 @@ class StreamingFactorSource:
     Peak factor memory: one ``[every, F, S]`` span + ``[n / every, F, S]``
     checkpoints.  ``every`` is rounded up to a multiple of 16.  On a CUDA
     device the checkpoint pass and each span are one launch of the path
-    kernel; ``device="cpu"`` runs the plain versions.
+    kernel; ``device="cpu"`` runs the plain versions.  With ``mesh`` (a
+    :class:`~storage_tpu_torch.parallel.mesh.PathsMesh`; ``device`` is not
+    used) each shard keeps its own checkpoints and regenerates only its own
+    window of each span on its own device, so no device holds the whole set:
+    :meth:`factors` and :meth:`last` return one tensor per shard.
     """
 
     def __init__(self, coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
                  antithetic: bool = False, every: int = 512, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, mesh=None):
         self.num_steps = int(coeffs.decay.shape[0])
         self.num_factors = int(coeffs.decay.shape[1])
         self.num_sims = int(num_sims)
         self.antithetic = bool(antithetic)
         self.every = max(_DRAW_BLOCK, -(-int(every) // _DRAW_BLOCK) * _DRAW_BLOCK)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.devices[0]
         self.dtype = dtype
         self._key = key
         self._coeffs = coeffs
-        self._tables = None  # the kernel's keys and coefficient rows, uploaded once
-        self._ckpts = None  # computed on first use
-        self._span_cache = None  # (span_index, [span_len, F, S]) one-slot
+        # (device, window) of each shard; one shard of the whole set without a mesh.
+        self._shards = [(self.device, None)] if mesh is None else \
+            _mesh_windows(mesh, self.num_sims)
+        self._tables = {}  # the kernel's keys and coefficient rows, uploaded once per device
+        self._ckpts = None  # computed on first use, one tensor per shard
+        self._span_cache = None  # (span_index, [[span_len, F, S_shard], ...]) one-slot
 
     def prepare(self) -> "StreamingFactorSource":
         """Eagerly run the checkpoint pass (otherwise lazy on first read), so
         that callers can attribute the upfront simulation cost to their own
         timing phase.  Returns ``self`` for chaining."""
-        self._checkpoints()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._shard_checkpoints()
+        for device in {d for d, _ in self._shards if d.type == "cuda"}:
+            torch.cuda.synchronize(device)
         return self
 
     def spans(self):
@@ -647,29 +773,44 @@ class StreamingFactorSource:
         return [(a, min(a + self.every, self.num_steps))
                 for a in range(0, self.num_steps, self.every)]
 
-    def _on_card(self) -> bool:
-        if self.device.type == "cpu":
-            return False
-        if self._tables is None:
-            self._tables = _path_kernel_tables(self._coeffs, self._key, self.device, self.dtype)
-        return True
+    def _tables_on(self, device) -> Optional[_PathKernelTables]:
+        """The kernel's tables on a CUDA ``device``; None on the CPU."""
+        if device.type == "cpu":
+            return None
+        if device not in self._tables:
+            self._tables[device] = _path_kernel_tables(self._coeffs, self._key, device,
+                                                       self.dtype)
+        return self._tables[device]
 
-    def _checkpoints(self) -> torch.Tensor:
+    def _width(self, window) -> int:
+        return self.num_sims if window is None else window[1]
+
+    def _shard_checkpoints(self):
         if self._ckpts is None:
-            if self._on_card():
-                out = torch.empty(
-                    (_num_checkpoints(self.num_steps, self.every), self.num_factors,
-                     self.num_sims), dtype=self.dtype, device=self.device)
-                self._ckpts = _launch_path_sim(self._tables, out, self.num_sims,
-                                               self.antithetic, every=self.every)
-            else:
-                self._ckpts = factor_checkpoints_reference(
-                    self._coeffs, self.num_sims, self._key, self.antithetic, self.every,
-                    self.device, self.dtype)
+            self._ckpts = []
+            for device, window in self._shards:
+                tables = self._tables_on(device)
+                if tables is not None:
+                    out = torch.empty(
+                        (_num_checkpoints(self.num_steps, self.every), self.num_factors,
+                         self._width(window)), dtype=self.dtype, device=device)
+                    self._ckpts.append(_launch_path_sim(tables, out, self.num_sims,
+                                                        self.antithetic, every=self.every,
+                                                        window=window))
+                else:
+                    self._ckpts.append(factor_checkpoints_reference(
+                        self._coeffs, self.num_sims, self._key, self.antithetic, self.every,
+                        device, self.dtype, window))
         return self._ckpts
 
-    def factors(self, a: int, b: int) -> torch.Tensor:
-        """``[b - a, F, S]`` factor states for steps [a, b).
+    def _checkpoints(self):
+        """The checkpoints ``[num_ckpt, F, S]``, or one tensor per shard."""
+        ckpts = self._shard_checkpoints()
+        return ckpts if self.mesh is not None else ckpts[0]
+
+    def factors(self, a: int, b: int):
+        """``[b - a, F, S]`` factor states for steps [a, b) (one tensor per
+        shard with a mesh).
 
         ``[a, b)`` must lie within one aligned span (the engine iterates
         :meth:`spans`), so each call re-simulates at most one span.
@@ -683,28 +824,35 @@ class StreamingFactorSource:
         # last regenerated span removes all redundant re-simulation at the
         # cost of one resident span.
         if self._span_cache is not None and self._span_cache[0] == i:
-            out = self._span_cache[1]
+            outs = self._span_cache[1]
         else:
             # Drop the stale span BEFORE materialising the next one: holding
             # both would transiently double the streamed-path footprint that
             # the path budget sized to ONE [span, F, S] block.
             self._span_cache = None
-            y0 = self._checkpoints()[i]
-            if self._on_card():
-                out = torch.empty((s1 - s0, self.num_factors, self.num_sims),
-                                  dtype=self.dtype, device=self.device)
-                _launch_path_sim(self._tables, out, self.num_sims, self.antithetic, y0=y0,
-                                 step0=s0, num_steps=s1 - s0)
-            else:
-                out = simulate_factor_paths_reference(
-                    self._coeffs, self.num_sims, self._key, self.antithetic, self.device,
-                    y0=y0, step0=s0, num_steps=s1 - s0, dtype=self.dtype)
-            self._span_cache = (i, out)
-        return out[a - s0:b - s0]
+            outs = []
+            for (device, window), ckpts in zip(self._shards, self._shard_checkpoints()):
+                tables = self._tables_on(device)
+                if tables is not None:
+                    out = torch.empty((s1 - s0, self.num_factors, self._width(window)),
+                                      dtype=self.dtype, device=device)
+                    _launch_path_sim(tables, out, self.num_sims, self.antithetic, y0=ckpts[i],
+                                     step0=s0, num_steps=s1 - s0, window=window)
+                else:
+                    out = simulate_factor_paths_reference(
+                        self._coeffs, self.num_sims, self._key, self.antithetic, device,
+                        y0=ckpts[i], step0=s0, num_steps=s1 - s0, dtype=self.dtype,
+                        window=window)
+                outs.append(out)
+            self._span_cache = (i, outs)
+        outs = [out[a - s0:b - s0] for out in outs]
+        return outs if self.mesh is not None else outs[0]
 
-    def last(self) -> torch.Tensor:
-        """``[F, S]`` — the factor state of the final simulated period."""
-        return self.factors(self.num_steps - 1, self.num_steps)[0]
+    def last(self):
+        """``[F, S]`` — the factor state of the final simulated period (one
+        tensor per shard with a mesh)."""
+        outs = self.factors(self.num_steps - 1, self.num_steps)
+        return [o[0] for o in outs] if self.mesh is not None else outs[0]
 
 
 def spots_from_factor_paths(factors: torch.Tensor, vols: torch.Tensor,

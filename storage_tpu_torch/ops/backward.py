@@ -76,17 +76,17 @@ def backward_update_reference(
 def _persistent_grid(lib, device, S: int, D: int, B: int, dtype=torch.float32) -> int:
     """Blocks (= partials) of the kernel's persistent grid for these shapes
     (of its float32 or its float64 instantiation)."""
-    from .csrc import check_launch
+    from .csrc import check_launch, on_device
 
-    key = (device.index, dtype, S, D, B)
-    if key not in _GRIDS:
-        blocks = lib.backward_update_blocks if dtype == torch.float32 else \
-            lib.backward_update_f64_blocks
-        with torch.cuda.device(device):
+    with on_device(device):
+        key = (torch.cuda.current_device(), dtype, S, D, B)
+        if key not in _GRIDS:
+            blocks = lib.backward_update_blocks if dtype == torch.float32 else \
+                lib.backward_update_f64_blocks
             n = blocks(S, D, B)
-        if n <= 0:
-            check_launch("backward_update", -n)
-        _GRIDS[key] = n
+            if n <= 0:
+                check_launch("backward_update", -n)
+            _GRIDS[key] = n
     return _GRIDS[key]
 
 
@@ -94,7 +94,7 @@ def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom
                           scal, spec: BasisSpec):
     """Launch ``backward_update_kernel`` (CUDA tensors only), its float32 or
     its float64 instantiation by the dtype of ``v_next``."""
-    from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels
+    from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels, on_device
 
     F, S = factors.shape
     G = v_next.shape[0]
@@ -117,13 +117,14 @@ def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom
     spot_pow, fac_pow = basis_arrays(spec)
     launch = lib.backward_update_launch if dtype == torch.float32 else \
         lib.backward_update_f64_launch
-    err = launch(
-        factors.data_ptr(), factors_prev.data_ptr(), v_next.data_ptr(), v_out.data_ptr(),
-        table.data_ptr(), vbar.data_ptr(), musd.data_ptr(), geom_j.data_ptr(),
-        geom_w.data_ptr(), scal.data_ptr(), partials.data_ptr(),
-        S, G, D, B, F, spot_pow, fac_pow, nblk,
-        torch.cuda.current_stream(v_next.device).cuda_stream,
-    )
+    with on_device(v_next.device):
+        err = launch(
+            factors.data_ptr(), factors_prev.data_ptr(), v_next.data_ptr(), v_out.data_ptr(),
+            table.data_ptr(), vbar.data_ptr(), musd.data_ptr(), geom_j.data_ptr(),
+            geom_w.data_ptr(), scal.data_ptr(), partials.data_ptr(),
+            S, G, D, B, F, spot_pow, fac_pow, nblk,
+            torch.cuda.current_stream(v_next.device).cuda_stream,
+        )
     check_launch("backward_update", err)
     count_launch("backward_update")
     sums = partials.sum(dim=0)  # a fixed-order reduction over the blocks

@@ -13,6 +13,7 @@ raises :class:`KernelBuildError` (with nvcc's output) if the build fails.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,8 +145,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         launch = getattr(lib, f"path_sim{suffix}_launch")
         launch.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
         launch.restype = i
+        launch = getattr(lib, f"path_sim{suffix}_window_launch")
+        launch.argtypes = [p, p, p, p, ll, ll, ll, ll, i, i, i, i, p]
+        launch.restype = i
     lib.storage_kernels_error_string.argtypes = [i]
     lib.storage_kernels_error_string.restype = ctypes.c_char_p
+    lib.storage_kernels_set_device.argtypes = [i]
+    lib.storage_kernels_set_device.restype = i
 
 
 def kernels() -> ctypes.CDLL:
@@ -155,6 +161,21 @@ def kernels() -> ctypes.CDLL:
         if _lib is None:
             _lib = load(build())
         return _lib
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Run the enclosed launches on the CUDA ``device``: current for torch
+    (so ``torch.cuda.current_stream()`` is that device's) and for the
+    library's own CUDA runtime, which the launchers start their kernels on.
+    A failure raises :class:`KernelLaunchError`; nothing falls back."""
+    import torch
+
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        index = torch.cuda.current_device() if device.index is None else device.index
+        check_launch(f"cudaSetDevice({index})", kernels().storage_kernels_set_device(index))
+        yield
 
 
 def check_dtype(what: str, dtype) -> None:

@@ -609,6 +609,11 @@ extern "C" int forward_sim_f64_launch(
                                  fac_pow, rec_len, num_blocks, stream);
 }
 
+// Makes `device` this library's current device (its CUDA runtime is its
+// own, linked in statically): the launchers start their kernels there.
+// Returns the cudaError_t (0 on success).
+extern "C" int storage_kernels_set_device(int device) { return (int)cudaSetDevice(device); }
+
 extern "C" const char* storage_kernels_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

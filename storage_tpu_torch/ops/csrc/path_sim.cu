@@ -16,6 +16,13 @@
 // depend only on the key and the absolute step, the state is carried in
 // its type either way.
 //
+// Two layouts of the sims, in every use: the whole set (path_sim_launch),
+// and a window [sim0, sim0 + local) of it (path_sim_window_launch), which is
+// what one shard of a paths mesh simulates: out and y0 then hold only the
+// window's columns, and each of them equals the same column of the whole
+// set bit for bit, since a sim's draws are found by its counter in the
+// whole set's draw block.
+//
 // What it computes. Steps are drawn in blocks of 16; block b0's key is
 // fold_in(key, b0), hashed on the host (n / 16 pairs). Element
 // i = (c F + f) S' + s of block b0's [16, F, S'] draw (c the step within the
@@ -27,17 +34,22 @@
 //                                    lowers erf_inv)
 // and the factor state moves as y_f <- decay[k, f] y_f + sum_g chol[k, f, g] z_g,
 // written to out[k, f, s]. In antithetic mode sim s + S' takes -z, so its
-// state is exactly -y (round-to-nearest is symmetric in sign): the thread
-// of sim s writes both.
+// state is exactly -y (round-to-nearest is symmetric in sign): over the
+// whole set the thread of sim s writes both; in a window each thread draws
+// its own sim, a partner s >= S' the draw s - S' negated.
 //
-// Rounding, float32. Every product and sum of the uniform map, the Horner
-// steps and the OU update is rounded on its own (__fmul_rn / __fadd_rn:
-// nvcc may not contract them into FMAs), in the order of the plain
-// version's torch ops;
-// log1pf and the IEEE square root are the functions torch's CUDA ops call.
-// Polynomial coefficients are double literals cast to float, which is how
-// the plain version's Python floats become float32. So the paths equal the
-// plain version's on the same card bit for bit.
+// Rounding, float32: as XLA's CPU code rounds it, which fuses multiply-adds
+// (models/simulation.py::_erf_inv_f32). Each Horner step of erf_inv and of
+// log1p's P and Q is one FMA (__fmaf_rn), and so is the OU update after its
+// first product: inc = c0 z0, inc = fma(c_g, z_g, inc), y = fma(decay, y,
+// inc). log1p's upper branch takes XLA's own float32 log (Cephes' logf,
+// its multiply-adds fused as well), the square root is IEEE's. Every other
+// product and sum is rounded on its own (__fmul_rn / __fadd_rn: nvcc may
+// not contract them). Polynomial coefficients are double literals cast to
+// float, which is how the plain version's Python floats become float32.
+// The plain version computes the same steps with an exact FMA written in
+// float64 torch ops (_fma32), so the paths equal it on the same card bit for
+// bit, and the draws equal jax.random.normal's.
 //
 // Float64 mode (path_sim_f64_launch): the same hash and keys, but a draw
 // takes both words of the hash as one 64-bit word o1 << 32 | o2 (not
@@ -64,9 +76,10 @@
 // integer operations (20 rounds of add, rotate, xor; 11 key additions; the
 // final xor) plus 3 for the counter and the mantissa, at the card's int32
 // rate (64 lanes per SM, half the float32 lane rate: 16.75e12
-// operations/s); 1.02e9 elements take 4.6 ms. The float32 work (the map,
-// log1pf, the square root, 16 Horner operations, 2F + 1 for the OU update)
-// is ~35 operations per element, 0.5 ms at 67 TFLOP/s, on another pipe. So
+// operations/s); 1.02e9 elements take 4.6 ms. The float32 work (the map
+// with XLA's log1p on either branch, ~55 operations; 2F + 1 for the OU
+// update) is ~60 operations per element, 0.9 ms at 67 TFLOP/s, on another
+// pipe. So
 // integer operations bound it, not bytes. The float64 map is ~85 operations
 // a draw (2.6 ms at 34 TFLOP/s): the hash bounds it as well. The checkpoint
 // pass does the same operations and writes 1 / every of the bytes.
@@ -148,14 +161,56 @@ __device__ __forceinline__ uint32_t threefry_bits(const uint32_t (&ks)[3], uint3
   return o1 ^ o2;
 }
 
-// XLA's float32 erf_inv (Giles), each step rounded like the torch version.
+// XLA's float32 log on the CPU (Cephes' logf) of a positive normal x, as
+// models/simulation.py::_xla_logf computes it.
+__device__ __forceinline__ float xla_logf(float x) {
+  const int bits = __float_as_int(x);
+  float e = __fadd_rn((float)((bits >> 23) - 0x7F), 1.0f);
+  float m = __int_as_float((bits & 0x007FFFFF) | 0x3F000000);  // in [1/2, 1)
+  const bool below = m < (float)0.707106781186547524;
+  e = __fsub_rn(e, below ? 1.0f : 0.0f);
+  m = __fadd_rn(__fsub_rn(m, 1.0f), below ? m : 0.0f);
+  const float x2 = __fmul_rn(m, m), x3 = __fmul_rn(x2, m);
+  float y = __fmaf_rn(m, (float)7.0376836292e-2, (float)-1.1514610310e-1);
+  float y1 = __fmaf_rn(m, (float)-1.2420140846e-1, (float)1.4249322787e-1);
+  float y2 = __fmaf_rn(m, (float)2.0000714765e-1, (float)-2.4999993993e-1);
+  y = __fmaf_rn(y, m, (float)1.1676998740e-1);
+  y1 = __fmaf_rn(y1, m, (float)-1.6668057665e-1);
+  y2 = __fmaf_rn(y2, m, (float)3.3333331174e-1);
+  y = __fmaf_rn(__fmaf_rn(y, x3, y1), x3, y2);
+  y = __fmaf_rn(y, x3, __fmul_rn((float)-2.12194440e-4, e));
+  return __fadd_rn(__fadd_rn(__fsub_rn(m, __fmul_rn(0.5f, x2)), y),
+                   __fmul_rn((float)0.693359375, e));
+}
+
+// XLA's float32 log1p (models/simulation.py::_xla_log1p): the rational
+// approximation below sqrt(2) - 1, log(1 + x) above it.
+__device__ __forceinline__ float xla_log1pf(float x) {
+  if (!(fabsf(x) < (float)0.41421356237309504880)) return xla_logf(__fadd_rn(x, 1.0f));
+  float p = (float)4.5270000862445199635215e-5, q = 1.0f;
+#define STORAGE_LOG1P_STEP(c_p, c_q)   \
+  p = __fmaf_rn(p, x, (float)(c_p)); \
+  q = __fmaf_rn(q, x, (float)(c_q));
+  STORAGE_LOG1P_STEP(4.9854102823193375972212e-1, 1.5062909083469192043167e1)
+  STORAGE_LOG1P_STEP(6.5787325942061044846969e0, 8.3047565967967209469434e1)
+  STORAGE_LOG1P_STEP(2.9911919328553073277375e1, 2.2176239823732856465394e2)
+  STORAGE_LOG1P_STEP(6.0949667980987787057556e1, 3.0909872225312059774938e2)
+  STORAGE_LOG1P_STEP(5.7112963590585538103336e1, 2.1642788614495947685003e2)
+  STORAGE_LOG1P_STEP(2.0039553499201281259648e1, 6.0118660497603843919306e1)
+#undef STORAGE_LOG1P_STEP
+  const float x2 = __fmul_rn(x, x);
+  return __fadd_rn(x, __fadd_rn(__fmul_rn(-0.5f, x2),
+                                __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(p, q))));
+}
+
+// XLA's float32 erf_inv (Giles), each Horner step one FMA.
 __device__ __forceinline__ float erf_inv_rn(float x) {
-  float w = -log1pf(__fmul_rn(-x, x));
+  float w = -xla_log1pf(__fmul_rn(-x, x));
   const bool lt = w < 5.0f;
   w = lt ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
   float p = lt ? (float)2.81022636e-08 : (float)-0.000200214257;
 #define STORAGE_ERFINV_STEP(c_lt, c_ge) \
-  p = __fadd_rn(lt ? (float)(c_lt) : (float)(c_ge), __fmul_rn(p, w));
+  p = __fmaf_rn(p, w, lt ? (float)(c_lt) : (float)(c_ge));
   STORAGE_ERFINV_STEP(3.43273939e-07, 0.000100950558)
   STORAGE_ERFINV_STEP(-3.5233877e-06, 0.00134934322)
   STORAGE_ERFINV_STEP(-4.39150654e-06, -0.00367342844)
@@ -303,49 +358,79 @@ __device__ __forceinline__ float normal_draw<float>(const uint32_t (&ks)[3], uin
   return normal_from_bits(threefry_bits(ks, counter));
 }
 
-// Products and sums of the OU update are rounded on their own in either type
-// (mul_rn / add_rn, storage_kernels.cuh).
-
 // 0 - y: the antithetic partner's state. The plain version computes the
 // partner from -z on its own, so an exactly zero state (every sim's at step
 // 0) is +0 there for both sims of a pair; -y would write -0.
 __device__ __forceinline__ float mirrored(float y) { return __fsub_rn(0.0f, y); }
 __device__ __forceinline__ double mirrored(double y) { return __dsub_rn(0.0, y); }
 
-// One state [F, S] written at dst: sim s and, where it has one, its partner.
+// Which sim a thread draws, and where it writes. Over the whole set
+// (`window` false) thread t is sim t of the draw_sims drawn, and writes
+// column t and, where it has one, its antithetic partner t + draw_sims of
+// out [., F, num_sims]. In a window thread t is sim sim0 + t of the whole
+// set and writes column t of out [., F, local]; a partner (sim >= draw_sims,
+// antithetic mode only) takes the draw sim - draw_sims, negated.
+struct SimSlot {
+  uint32_t t;       // the thread's column in out and y0
+  uint32_t draw;    // its draw's index in the draw block's sims
+  bool negate;      // the draw is negated (a partner, in a window)
+  bool mirror;      // the thread also writes column t + draw_sims (whole set)
+  long long width;  // columns of out and y0
+};
+
+__device__ __forceinline__ SimSlot sim_slot(uint32_t t, bool window, long long num_sims,
+                                            uint32_t draw_sims, long long sim0, long long local) {
+  SimSlot slot;
+  slot.t = t;
+  if (window) {
+    const long long s = sim0 + t;
+    slot.negate = s >= draw_sims;
+    slot.draw = (uint32_t)(slot.negate ? s - draw_sims : s);
+    slot.mirror = false;
+    slot.width = local;
+  } else {
+    slot.draw = t;
+    slot.negate = false;
+    slot.mirror = (long long)t + draw_sims < num_sims;
+    slot.width = num_sims;
+  }
+  return slot;
+}
+
+// One state [F, width] written at dst: the thread's column and, where it
+// has one, its partner's.
 template <typename T, int kF>
 __device__ __forceinline__ void store_state(T* __restrict__ dst, const T (&y)[kF],
-                                            long long num_sims, uint32_t s, uint32_t draw_sims,
-                                            bool mirror) {
+                                            const SimSlot& slot, uint32_t draw_sims) {
 #pragma unroll
   for (int f = 0; f < kF; ++f) {
-    dst[(size_t)f * num_sims + s] = y[f];
-    if (mirror) dst[(size_t)f * num_sims + s + draw_sims] = mirrored(y[f]);
+    dst[(size_t)f * slot.width + slot.t] = y[f];
+    if (slot.mirror) dst[(size_t)f * slot.width + slot.t + draw_sims] = mirrored(y[f]);
   }
 }
 
-// kCheckpoints false: writes every step's state, out [num_steps, F, S].
+// kCheckpoints false: writes every step's state, out [num_steps, F, width].
 // kCheckpoints true: writes only the state ENTERING local steps 0, every,
-// 2 every, ... into out [ceil(num_steps / every), F, S] and stops at the last
-// of them. Steps are absolute: local step i is step step0 + i of the horizon
-// (step0 a multiple of kDrawBlock), which picks the block key and the
-// coefficient row; y0 (null: zeros) is the state entering step0. Only
-// y0[f, s] of the drawn sims is read: the partner's state is its negative.
+// 2 every, ... into out [ceil(num_steps / every), F, width] and stops at the
+// last of them. Steps are absolute: local step i is step step0 + i of the
+// horizon (step0 a multiple of kDrawBlock), which picks the block key and
+// the coefficient row; y0 (null: zeros) is the state entering step0. Only
+// y0[f, t] of the thread's own column is read: a partner's state is its
+// negative. `threads` is draw_sims over the whole set, local in a window.
 template <typename T, int kF, bool kCheckpoints>
 __global__ void __launch_bounds__(kSimThreads)
     path_sim_kernel(const uint32_t* __restrict__ keys,  // [ceil(N / 16), 2] block keys, whole horizon
                     const T* __restrict__ coef,         // [N, F + F F] decay, then chol row-major
-                    const T* __restrict__ y0,           // [F, S] or null
-                    T* __restrict__ out, long long num_sims, uint32_t draw_sims, int step0,
-                    int num_steps, int every) {
-  const uint32_t s = blockIdx.x * (uint32_t)kSimThreads + threadIdx.x;
-  if (s >= draw_sims) return;
-  // The antithetic partner s + S' (draw_sims < num_sims only in that mode).
-  const bool mirror = (long long)s + draw_sims < num_sims;
+                    const T* __restrict__ y0,           // [F, width] or null
+                    T* __restrict__ out, long long num_sims, uint32_t draw_sims, bool window,
+                    long long sim0, uint32_t threads, int step0, int num_steps, int every) {
+  const uint32_t t = blockIdx.x * (uint32_t)kSimThreads + threadIdx.x;
+  if (t >= threads) return;
+  const SimSlot slot = sim_slot(t, window, num_sims, draw_sims, sim0, threads);
   constexpr int kRow = kF + kF * kF;
   T y[kF];
 #pragma unroll
-  for (int f = 0; f < kF; ++f) y[f] = y0 != nullptr ? y0[(size_t)f * num_sims + s] : T(0);
+  for (int f = 0; f < kF; ++f) y[f] = y0 != nullptr ? y0[(size_t)f * slot.width + t] : T(0);
   uint32_t ks[3] = {0u, 0u, 0u};
   // Checkpoint mode stops at the last checkpoint (a multiple of `every`,
   // written after the loop): the steps after it enter no state that is kept.
@@ -354,8 +439,7 @@ __global__ void __launch_bounds__(kSimThreads)
   for (int i = 0; i < last; ++i) {
     if (kCheckpoints) {
       if (until_ckpt == 0) {
-        store_state<T, kF>(out + (size_t)(i / every) * kF * num_sims, y, num_sims, s,
-                           draw_sims, mirror);
+        store_state<T, kF>(out + (size_t)(i / every) * kF * slot.width, y, slot, draw_sims);
         until_ckpt = every;
       }
       --until_ckpt;
@@ -370,27 +454,26 @@ __global__ void __launch_bounds__(kSimThreads)
     T z[kF];
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
-      z[f] = normal_draw<T>(ks, (uint32_t)(c * kF + f) * draw_sims + s);
+      z[f] = normal_draw<T>(ks, (uint32_t)(c * kF + f) * draw_sims + slot.draw);
+      if (slot.negate) z[f] = -z[f];
     }
     const T* row = coef + (size_t)k * kRow;
 #pragma unroll
     for (int f = 0; f < kF; ++f) {
+      // XLA's fusion: inc = c0 z0, inc = fma(c_g, z_g, inc), y = fma(decay, y, inc).
       T inc = mul_rn(__ldg(row + kF + f * kF), z[0]);
 #pragma unroll
-      for (int g = 1; g < kF; ++g) {
-        inc = add_rn(inc, mul_rn(__ldg(row + kF + f * kF + g), z[g]));
-      }
-      y[f] = add_rn(mul_rn(__ldg(row + f), y[f]), inc);
+      for (int g = 1; g < kF; ++g) inc = fma_rn(__ldg(row + kF + f * kF + g), z[g], inc);
+      y[f] = fma_rn(__ldg(row + f), y[f], inc);
       if (!kCheckpoints) {
-        T* dst = out + ((size_t)i * kF + f) * num_sims;
-        dst[s] = y[f];
-        if (mirror) dst[(size_t)s + draw_sims] = mirrored(y[f]);
+        T* dst = out + ((size_t)i * kF + f) * slot.width;
+        dst[t] = y[f];
+        if (slot.mirror) dst[(size_t)t + draw_sims] = mirrored(y[f]);
       }
     }
   }
   if (kCheckpoints) {
-    store_state<T, kF>(out + (size_t)(last / every) * kF * num_sims, y, num_sims, s, draw_sims,
-                       mirror);
+    store_state<T, kF>(out + (size_t)(last / every) * kF * slot.width, y, slot, draw_sims);
   }
 }
 
@@ -424,30 +507,33 @@ __device__ __forceinline__ void map_class(double* val, int first, int dir, int n
   }
 }
 
-// The float64 path kernel: the modes, arguments and values of
-// path_sim_kernel, one thread per drawn sim. Lanes past draw_sims (the last
+// The float64 path kernel: the modes, layouts, arguments and values of
+// path_sim_kernel, one thread per column. Lanes past `threads` (the last
 // warp) take part in every ballot and __syncwarp but draw nothing.
 template <int kF, bool kCheckpoints>
 __global__ void __launch_bounds__(K3F64::kThreads)
     path_sim_f64_kernel(const uint32_t* __restrict__ keys, const double* __restrict__ coef,
                         const double* __restrict__ y0, double* __restrict__ out,
-                        long long num_sims, uint32_t draw_sims, int step0, int num_steps,
-                        int every) {
+                        long long num_sims, uint32_t draw_sims, bool window, long long sim0,
+                        uint32_t threads, int step0, int num_steps, int every) {
   using Round = F64Round<kF>;
   __shared__ Round rounds[K3F64::kThreads / kWarp];  // static: no shared window base to rebuild
   const int lane = threadIdx.x % kWarp;
   Round& sh = rounds[threadIdx.x / kWarp];
-  const uint32_t s = blockIdx.x * (uint32_t)K3F64::kThreads + threadIdx.x;
-  if (s - lane >= draw_sims) return;  // the whole warp lies past the sims
-  const bool active = s < draw_sims;
-  const bool mirror = active && (long long)s + draw_sims < num_sims;
+  const uint32_t t = blockIdx.x * (uint32_t)K3F64::kThreads + threadIdx.x;
+  if (t - lane >= threads) return;  // the whole warp lies past the sims
+  const bool active = t < threads;
+  const SimSlot slot = sim_slot(t, window, num_sims, draw_sims, sim0, threads);
+  const bool mirror = active && slot.mirror;
   const unsigned lanes_below = (1u << lane) - 1u;
   const unsigned active_lanes = __ballot_sync(0xffffffffu, active);
   const int active_below = __popc(active_lanes & lanes_below), num_active = __popc(active_lanes);
   constexpr int kRow = kF + kF * kF;
   double y[kF];
 #pragma unroll
-  for (int f = 0; f < kF; ++f) y[f] = y0 != nullptr && active ? y0[(size_t)f * num_sims + s] : 0.0;
+  for (int f = 0; f < kF; ++f) {
+    y[f] = y0 != nullptr && active ? y0[(size_t)f * slot.width + t] : 0.0;
+  }
   const int last = kCheckpoints ? ((num_steps - 1) / every) * every : num_steps;
   int until_ckpt = 0;
   for (int i0 = 0; i0 < last; i0 += K3F64::kSteps) {
@@ -464,7 +550,8 @@ __global__ void __launch_bounds__(K3F64::kThreads)
 #pragma unroll
       for (int f = 0; f < kF; ++f) {
         uint32_t o1, o2;
-        threefry_words(ks, (uint32_t)((k0 % kDrawBlock + c) * kF + f) * draw_sims + s, o1, o2);
+        threefry_words(ks, (uint32_t)((k0 % kDrawBlock + c) * kF + f) * draw_sims + slot.draw,
+                       o1, o2);
         const double u = uniform_from_words(o1, o2);
         const bool rational = fabs(u) <= kRationalMaxU;
         const unsigned in_rational = __ballot_sync(0xffffffffu, active && rational);
@@ -484,23 +571,26 @@ __global__ void __launch_bounds__(K3F64::kThreads)
     map_class<false>(sh.val, Round::kCap - 1, -1, num_log, lane);
     __syncwarp();
     if (active) {
-      // Running pointers: the step's coefficient row, and sim s's element of
-      // the step's state [F, S] in path mode.
+      // Running pointers: the step's coefficient row, and the thread's
+      // element of the step's state [F, width] in path mode.
       const double* row = coef + (size_t)(step0 + i0) * kRow;
-      double* dst = out + (size_t)i0 * kF * num_sims + s;
-      for (int c = 0; c < steps; ++c, row += kRow, dst += (size_t)kF * num_sims) {
+      double* dst = out + (size_t)i0 * kF * slot.width + t;
+      for (int c = 0; c < steps; ++c, row += kRow, dst += (size_t)kF * slot.width) {
         const int i = i0 + c;
         if (kCheckpoints) {
           if (until_ckpt == 0) {
-            store_state<double, kF>(out + (size_t)(i / every) * kF * num_sims, y, num_sims, s,
-                                    draw_sims, mirror);
+            store_state<double, kF>(out + (size_t)(i / every) * kF * slot.width, y, slot,
+                                    draw_sims);
             until_ckpt = every;
           }
           --until_ckpt;
         }
         double z[kF];
 #pragma unroll
-        for (int f = 0; f < kF; ++f) z[f] = sh.val[sh.pos[(c * kF + f) * kWarp + lane]];
+        for (int f = 0; f < kF; ++f) {
+          z[f] = sh.val[sh.pos[(c * kF + f) * kWarp + lane]];
+          if (slot.negate) z[f] = -z[f];
+        }
 #pragma unroll
         for (int f = 0; f < kF; ++f) {
           // XLA's fusion: inc = c0 z0, inc = fma(c_g, z_g, inc), y = fma(decay, y, inc).
@@ -509,8 +599,8 @@ __global__ void __launch_bounds__(K3F64::kThreads)
           for (int g = 1; g < kF; ++g) inc = __fma_rn(__ldg(row + kF + f * kF + g), z[g], inc);
           y[f] = __fma_rn(__ldg(row + f), y[f], inc);
           if (!kCheckpoints) {
-            dst[(size_t)f * num_sims] = y[f];
-            if (mirror) dst[(size_t)f * num_sims + draw_sims] = mirrored(y[f]);
+            dst[(size_t)f * slot.width] = y[f];
+            if (mirror) dst[(size_t)f * slot.width + draw_sims] = mirrored(y[f]);
           }
         }
       }
@@ -518,62 +608,75 @@ __global__ void __launch_bounds__(K3F64::kThreads)
     __syncwarp();  // the next round overwrites the lists
   }
   if (kCheckpoints && active) {
-    store_state<double, kF>(out + (size_t)(last / every) * kF * num_sims, y, num_sims, s,
-                            draw_sims, mirror);
+    store_state<double, kF>(out + (size_t)(last / every) * kF * slot.width, y, slot, draw_sims);
   }
 }
 
+// The launch arguments every instantiation takes.
+struct PathSimArgs {
+  const uint32_t* keys;
+  long long num_sims;
+  uint32_t draw_sims;
+  bool window;
+  long long sim0;
+  uint32_t threads;  // draw_sims over the whole set, the window's width in a window
+  int step0, num_steps, every;
+};
+
 template <int kF, bool kCheckpoints>
-static void launch_path_sim_f64(unsigned blocks, cudaStream_t st, const uint32_t* keys,
-                                const double* coef, const double* y0, double* out,
-                                long long num_sims, uint32_t draw_sims, int step0,
-                                int num_steps, int every) {
+static void launch_path_sim_f64(cudaStream_t st, const PathSimArgs& a, const double* coef,
+                                const double* y0, double* out) {
+  const unsigned blocks =
+      (unsigned)(((long long)a.threads + K3F64::kThreads - 1) / K3F64::kThreads);
   path_sim_f64_kernel<kF, kCheckpoints><<<blocks, K3F64::kThreads, 0, st>>>(
-      keys, coef, y0, out, num_sims, draw_sims, step0, num_steps, every);
+      a.keys, coef, y0, out, a.num_sims, a.draw_sims, a.window, a.sim0, a.threads, a.step0,
+      a.num_steps, a.every);
 }
 
 template <typename T, int kF>
-static void launch_path_sim(bool checkpoints, unsigned blocks, cudaStream_t st,
-                            const uint32_t* keys, const T* coef, const T* y0, T* out,
-                            long long num_sims, uint32_t draw_sims, int step0, int num_steps,
-                            int every) {
+static void launch_path_sim(cudaStream_t st, const PathSimArgs& a, const T* coef, const T* y0,
+                            T* out) {
+  const bool checkpoints = a.every > 0;
   if constexpr (std::is_same<T, double>::value) {
-    blocks = (unsigned)(((long long)draw_sims + K3F64::kThreads - 1) / K3F64::kThreads);
     if (checkpoints) {
-      launch_path_sim_f64<kF, true>(blocks, st, keys, coef, y0, out, num_sims, draw_sims, step0,
-                                    num_steps, every);
+      launch_path_sim_f64<kF, true>(st, a, coef, y0, out);
     } else {
-      launch_path_sim_f64<kF, false>(blocks, st, keys, coef, y0, out, num_sims, draw_sims, step0,
-                                     num_steps, every);
+      launch_path_sim_f64<kF, false>(st, a, coef, y0, out);
     }
-  } else if (checkpoints) {
-    path_sim_kernel<T, kF, true><<<blocks, kSimThreads, 0, st>>>(
-        keys, coef, y0, out, num_sims, draw_sims, step0, num_steps, every);
   } else {
-    path_sim_kernel<T, kF, false><<<blocks, kSimThreads, 0, st>>>(
-        keys, coef, y0, out, num_sims, draw_sims, step0, num_steps, every);
+    const unsigned blocks = (unsigned)(((long long)a.threads + kSimThreads - 1) / kSimThreads);
+    if (checkpoints) {
+      path_sim_kernel<T, kF, true><<<blocks, kSimThreads, 0, st>>>(
+          a.keys, coef, y0, out, a.num_sims, a.draw_sims, a.window, a.sim0, a.threads, a.step0,
+          a.num_steps, a.every);
+    } else {
+      path_sim_kernel<T, kF, false><<<blocks, kSimThreads, 0, st>>>(
+          a.keys, coef, y0, out, a.num_sims, a.draw_sims, a.window, a.sim0, a.threads, a.step0,
+          a.num_steps, a.every);
+    }
   }
 }
 
 template <typename T>
 static int path_sim_launch_typed(const uint32_t* keys, const T* coef, const T* y0, T* out,
-                                 long long num_sims, long long draw_sims, int step0,
-                                 int num_steps, int num_factors, int every, void* stream) {
+                                 long long num_sims, long long draw_sims, bool window,
+                                 long long sim0, long long local_sims, int step0, int num_steps,
+                                 int num_factors, int every, void* stream) {
   if (num_factors < 1 || num_factors > kMaxFactors || num_steps < 1 || draw_sims < 1 ||
       draw_sims > num_sims || num_sims > 2 * draw_sims || step0 < 0 ||
       step0 % kDrawBlock != 0 || every < 0 || every % kDrawBlock != 0 ||
-      (long long)kDrawBlock * num_factors * draw_sims >= (1LL << 32)) {
+      (long long)kDrawBlock * num_factors * draw_sims >= (1LL << 32) ||
+      (window && (sim0 < 0 || local_sims < 1 || sim0 + local_sims > num_sims))) {
     return (int)cudaErrorInvalidValue;
   }
-  const unsigned blocks = (unsigned)((draw_sims + kSimThreads - 1) / kSimThreads);
+  const PathSimArgs a{keys, num_sims, (uint32_t)draw_sims, window, window ? sim0 : 0,
+                      (uint32_t)(window ? local_sims : draw_sims), step0, num_steps, every};
   const cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t ds = (uint32_t)draw_sims;
-  const bool ck = every > 0;
   switch (num_factors) {
-    case 1: launch_path_sim<T, 1>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
-    case 2: launch_path_sim<T, 2>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
-    case 3: launch_path_sim<T, 3>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
-    default: launch_path_sim<T, 4>(ck, blocks, st, keys, coef, y0, out, num_sims, ds, step0, num_steps, every); break;
+    case 1: launch_path_sim<T, 1>(st, a, coef, y0, out); break;
+    case 2: launch_path_sim<T, 2>(st, a, coef, y0, out); break;
+    case 3: launch_path_sim<T, 3>(st, a, coef, y0, out); break;
+    default: launch_path_sim<T, 4>(st, a, coef, y0, out); break;
   }
   return (int)cudaGetLastError();
 }
@@ -582,18 +685,18 @@ static int path_sim_launch_typed(const uint32_t* keys, const T* coef, const T* y
 
 using namespace storage_kernels;
 
-// Launches path_sim_kernel on `stream`: `draw_sims` threads, each writing
-// sim s and, where s + draw_sims < num_sims, its antithetic partner.
-// `keys` and `coef` cover the whole horizon; the launch runs steps
-// [step0, step0 + num_steps) from the entering state `y0` (null: zeros).
-// `every` == 0 writes the paths, out [num_steps, F, S]; `every` > 0 (a
-// multiple of 16) writes only the checkpoints, out [ceil(num_steps / every),
-// F, S]. Returns the cudaError_t of the launch (0 on success).
+// Launches path_sim_kernel on `stream` over the whole set: `draw_sims`
+// threads, each writing sim s and, where s + draw_sims < num_sims, its
+// antithetic partner. `keys` and `coef` cover the whole horizon; the launch
+// runs steps [step0, step0 + num_steps) from the entering state `y0` (null:
+// zeros). `every` == 0 writes the paths, out [num_steps, F, S]; `every` > 0
+// (a multiple of 16) writes only the checkpoints, out [ceil(num_steps /
+// every), F, S]. Returns the cudaError_t of the launch (0 on success).
 extern "C" int path_sim_launch(const uint32_t* keys, const float* coef, const float* y0,
                                float* out, long long num_sims, long long draw_sims, int step0,
                                int num_steps, int num_factors, int every, void* stream) {
-  return path_sim_launch_typed<float>(keys, coef, y0, out, num_sims, draw_sims, step0, num_steps,
-                                      num_factors, every, stream);
+  return path_sim_launch_typed<float>(keys, coef, y0, out, num_sims, draw_sims, false, 0,
+                                      num_sims, step0, num_steps, num_factors, every, stream);
 }
 
 // The same in float64: coef, y0 and out are double.
@@ -601,6 +704,27 @@ extern "C" int path_sim_f64_launch(const uint32_t* keys, const double* coef, con
                                    double* out, long long num_sims, long long draw_sims,
                                    int step0, int num_steps, int num_factors, int every,
                                    void* stream) {
-  return path_sim_launch_typed<double>(keys, coef, y0, out, num_sims, draw_sims, step0,
-                                       num_steps, num_factors, every, stream);
+  return path_sim_launch_typed<double>(keys, coef, y0, out, num_sims, draw_sims, false, 0,
+                                       num_sims, step0, num_steps, num_factors, every, stream);
+}
+
+// The window [sim0, sim0 + local_sims) of the set of num_sims: one thread a
+// sim, y0 [F, local_sims] (or null) and out [., F, local_sims] holding only
+// the window's columns; otherwise as path_sim_launch.
+extern "C" int path_sim_window_launch(const uint32_t* keys, const float* coef, const float* y0,
+                                      float* out, long long num_sims, long long draw_sims,
+                                      long long sim0, long long local_sims, int step0,
+                                      int num_steps, int num_factors, int every, void* stream) {
+  return path_sim_launch_typed<float>(keys, coef, y0, out, num_sims, draw_sims, true, sim0,
+                                      local_sims, step0, num_steps, num_factors, every, stream);
+}
+
+// The same in float64.
+extern "C" int path_sim_f64_window_launch(const uint32_t* keys, const double* coef,
+                                          const double* y0, double* out, long long num_sims,
+                                          long long draw_sims, long long sim0,
+                                          long long local_sims, int step0, int num_steps,
+                                          int num_factors, int every, void* stream) {
+  return path_sim_launch_typed<double>(keys, coef, y0, out, num_sims, draw_sims, true, sim0,
+                                       local_sims, step0, num_steps, num_factors, every, stream);
 }

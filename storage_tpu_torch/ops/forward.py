@@ -115,10 +115,10 @@ def grid_blocks(lib, device, spec: BasisSpec, *shape, dtype=torch.float32) -> in
     """Blocks (= partials) of the kernel's persistent grid for ``shape`` (the
     integer arguments of ``forward_sim_blocks``), the basis ``spec`` and the
     instantiation of ``dtype``: an occupancy query, asked on every launch."""
-    from .csrc import basis_arrays, check_launch
+    from .csrc import basis_arrays, check_launch, on_device
 
     blocks = lib.forward_sim_blocks if dtype == torch.float32 else lib.forward_sim_f64_blocks
-    with torch.cuda.device(device):
+    with on_device(device):
         n = blocks(*shape, *basis_arrays(spec))
     if n <= 0:
         check_launch("forward_sim", -n)
@@ -146,7 +146,7 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
                       panels: Optional[torch.Tensor] = None):
     """Launch ``forward_sim_kernel`` (CUDA tensors only), its float32 or its
     float64 instantiation by the dtype of ``factors``."""
-    from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels
+    from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels, on_device
 
     n, F, S = factors.shape
     B = spec.num_basis
@@ -177,13 +177,14 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
     pv_out = torch.empty((S,), dtype=dtype, device=dev)
     spot_pow, fac_pow = basis_arrays(spec)
     launch = lib.forward_sim_f64_launch if f64 else lib.forward_sim_launch
-    err = launch(
-        factors.data_ptr(), inv0.data_ptr(), records.data_ptr(), weights.data_ptr(),
-        partials.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
-        None if panels is None else panels.data_ptr(),
-        S, n, G, P, C, int(interp_kind), D, B, F, spot_pow, fac_pow, records.shape[1],
-        nblk, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        err = launch(
+            factors.data_ptr(), inv0.data_ptr(), records.data_ptr(), weights.data_ptr(),
+            partials.data_ptr(), inv_out.data_ptr(), pv_out.data_ptr(),
+            None if panels is None else panels.data_ptr(),
+            S, n, G, P, C, int(interp_kind), D, B, F, spot_pow, fac_pow, records.shape[1],
+            nblk, torch.cuda.current_stream(dev).cuda_stream,
+        )
     check_launch("forward_sim", err)
     count_launch("forward_sim")
     sums = partials.sum(dim=0)  # a fixed-order reduction over the blocks

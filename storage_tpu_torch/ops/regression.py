@@ -18,6 +18,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..parallel.mesh import replicate, sims_mean, sum_shards
 from ..utils.basis import Monomial
 
 
@@ -110,13 +111,25 @@ def standardize_columns(design: torch.Tensor, eps: float = 1e-12):
     The same (mean, scale) must be re-applied to the valuation-path design
     matrix in the forward pass so saved coefficients stay meaningful.
     """
-    mean = design.mean(dim=0)
-    var = ((design - mean) ** 2).mean(dim=0)
+    (standardized,), mean, scale = standardize_shards([design], eps)
+    return standardized, mean, scale
+
+
+def standardize_shards(designs: Sequence[torch.Tensor], eps: float = 1e-12):
+    """:func:`standardize_columns` of a design matrix split by sims into
+    shards ``[S_i, B]`` (one per device of a paths mesh): the column means,
+    then the means of the centred squares, each a sum of per-shard partials
+    over all the sims (:func:`~storage_tpu_torch.parallel.mesh.sims_mean`),
+    on the first shard's device.  Returns ``(shards, mean, scale)``."""
+    devices = [d.device for d in designs]
+    mean = sims_mean(designs, 0)
+    var = sims_mean([(d - mu) ** 2 for d, mu in zip(designs, replicate(devices, mean))], 0)
     sd = torch.sqrt(var)
     is_const = sd <= eps * (1.0 + mean.abs())
     mean = torch.where(is_const, torch.zeros_like(mean), mean)
     scale = torch.where(is_const, torch.ones_like(sd), sd)
-    return (design - mean) / scale, mean, scale
+    return ([(d - mu) / sc for d, mu, sc in zip(designs, replicate(devices, mean),
+                                                 replicate(devices, scale))], mean, scale)
 
 
 def cholesky_solve_or_zero(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -140,9 +153,18 @@ def fit_continuation(design_std: torch.Tensor, values: torch.Tensor,
     collinear; a failed solve falls back to the zero fit (see
     :func:`cholesky_solve_or_zero`).
     """
-    num_sims = design_std.shape[0]
-    gram = design_std.T @ design_std
-    rhs = design_std.T @ values
+    return fit_continuation_shards([design_std], [values], ridge)
+
+
+def fit_continuation_shards(designs_std: Sequence[torch.Tensor],
+                            values: Sequence[torch.Tensor], ridge: float = 1e-6) -> torch.Tensor:
+    """:func:`fit_continuation` of shards of the sims (``[S_i, B]`` designs,
+    ``[S_i, G]`` targets): the Gram matrix and right-hand side are sums of
+    per-shard products in shard order, the ridge scales with all the sims,
+    and the solve happens once, on the first shard's device."""
+    num_sims = sum(x.shape[0] for x in designs_std)
+    gram = sum_shards([x.T @ x for x in designs_std])
+    rhs = sum_shards([x.T @ v for x, v in zip(designs_std, values)])
     gram = gram + (ridge * num_sims) * torch.eye(
         gram.shape[0], dtype=gram.dtype, device=gram.device)
     return cholesky_solve_or_zero(gram, rhs)

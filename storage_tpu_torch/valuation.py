@@ -7,7 +7,12 @@ returns NPV, per-period deltas, the expected storage profile, trigger prices,
 trigger volume/price profiles and (``return_sim_panels``, the default) the
 per-sim panels.  The device work runs on ``device`` (default ``"cuda"``):
 the LSMC and path kernels launch there, in ``dtype`` (float32 or float64:
-each kernel has an instantiation of both).  ``on_progress_update``/``cancelled``
+each kernel has an instantiation of both).  With ``mesh`` (a
+:class:`~storage_tpu_torch.parallel.mesh.PathsMesh`, e.g.
+``paths_mesh(["cuda:0", "cuda:1"])``) the sims are split into equal shards
+over its devices: each shard simulates its own window of both path sets and
+runs the kernels on it, and the sums over the sims add the shards' partials
+(the intrinsic value still runs on ``device``).  ``on_progress_update``/``cancelled``
 run the engine span by span with the hooks between spans.  A path set larger
 than the budget of ``STORAGE_TPU_MAX_PATH_BYTES`` (default 6e9) is streamed:
 regenerated span by span from checkpointed factor states, never held whole.
@@ -26,7 +31,7 @@ import torch
 from .compile import SettlementRule, build_valuation_context
 from .engines.intrinsic import intrinsic_value_with_ctx
 from .engines.lsmc import LsmcArrays, run_lsmc
-from .exceptions import InventoryConstraintsCannotBeFulfilledError, not_ported
+from .exceptions import InventoryConstraintsCannotBeFulfilledError
 from .models.multi_factor import (
     FactorCorrsType,
     FactorType,
@@ -39,6 +44,7 @@ from .models.simulation import (
 )
 from .ops.csrc import check_dtype
 from .ops.regression import basis_spec
+from .parallel.mesh import replicate
 from .storage import CmdtyStorage
 from .types import TriggerPricePoint, TriggerPriceProfile
 from .utils.basis import THREE_FACTOR_SEASONAL_ALIASES, BasisFunctionsType, as_monomials
@@ -192,15 +198,6 @@ def _stream_span_length(max_path_bytes: float, per_step_bytes: int) -> int:
     return min(max(64, int(span_target // max(per_step_bytes, 1))), STREAM_MAX_SPAN)
 
 
-def _check_slice_options(dtype, mesh) -> None:
-    """``mesh``, an option of the JAX API that this port does not run yet,
-    raises, naming the ROADMAP item that ports it; a dtype other than
-    float32 or float64 is refused by name."""
-    if mesh is not None:
-        raise not_ported("mesh (multi-device paths)", "Queue 1 item 10")
-    check_dtype("the valuation", dtype)
-
-
 def _multi_factor_calc(
     cmdty_storage: CmdtyStorage,
     val_date: PeriodLike,
@@ -227,7 +224,7 @@ def _multi_factor_calc(
     profile_sink=None,
     device="cuda",
 ) -> MultiFactorValuationResults:
-    _check_slice_options(dtype, mesh)
+    check_dtype("the valuation", dtype)
     device = torch.device(device)
     freq = normalize_freq(cmdty_storage.freq)
     val_period = to_period(val_date, freq)
@@ -239,6 +236,13 @@ def _multi_factor_calc(
 
     if inventory < 0:
         raise ValueError("Inventory cannot be negative.")
+    if mesh is not None:
+        ndev = int(np.prod(list(mesh.shape.values())))
+        if num_sims % ndev:
+            raise ValueError(
+                f"num_sims ({num_sims}) must be divisible by the number of mesh "
+                f"devices ({ndev}) so paths shard evenly."
+            )
 
     # Edge cases (reference LsmcStorageValuation.cs:64-84).
     if val_period > cmdty_storage.end:
@@ -321,16 +325,16 @@ def _multi_factor_calc(
             logger.info("Streaming %s path simulation (span=%d).", name, every)
             with stopwatches.time(phase):
                 return StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
-                                             device=device, dtype=dtype).prepare()
+                                             device=device, dtype=dtype, mesh=mesh).prepare()
     else:
         def simulate(key, phase, name):
             with stopwatches.time(phase):
                 f = simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
-                                          device=device, dtype=dtype)
+                                          device=device, dtype=dtype, mesh=mesh)
                 if stopwatches.sync:
                     stopwatches.synchronize()
             if return_sim_panels:
-                sims_cache[name] = spots_from_factor_paths(f, sim_vols, sim_drift)
+                sims_cache[name] = _spot_panels(f, sim_vols, sim_drift)
             return f
 
     logger.info("Calculating LSMC value.")
@@ -347,6 +351,7 @@ def _multi_factor_calc(
         collect_panels=return_sim_panels,
         stopwatches=stopwatches,
         dtype=dtype,
+        mesh=mesh,
     )
     logger.info("Calculation of LSMC value complete.")
 
@@ -364,25 +369,46 @@ def _multi_factor_calc(
     return results
 
 
-def _fetch_panel(panel: torch.Tensor, max_chunk_bytes: int = 256 * 2**20) -> np.ndarray:
-    """Device->host copy of one ``[rows, S]`` panel into a contiguous float64
-    host array, in blocks of rows of at most ``max_chunk_bytes``: each block
-    is widened to float64 on the device and lands in its final place with
-    one copy, so the host makes no second pass over the data (at 1M paths a
-    panel is 1.4 GB on the device and 2.7 GB on the host)."""
-    rows, S = panel.shape
+def _spot_panels(factors, sim_vols, sim_drift):
+    """The spot panel ``[m+1, S]`` of a path set: one tensor, or one per shard
+    (on its device) for a path set in shards."""
+    if isinstance(factors, torch.Tensor):
+        return spots_from_factor_paths(factors, sim_vols, sim_drift)
+    devices = [f.device for f in factors]
+    return [spots_from_factor_paths(f, vols, drift) for f, vols, drift in
+            zip(factors, replicate(devices, sim_vols), replicate(devices, sim_drift))]
+
+
+def _fetch_panel(panel, max_chunk_bytes: int = 256 * 2**20) -> np.ndarray:
+    """Device->host copy of one ``[rows, S]`` panel, or of the list of its
+    shards ``[rows, S_i]`` (concatenated in shard order), into a contiguous
+    float64 host array, in blocks of rows of at most ``max_chunk_bytes``:
+    each block is widened to float64 on the device and lands in its final
+    place with one copy, so the host makes no second pass over the data (at
+    1M paths a panel is 1.4 GB on the device and 2.7 GB on the host)."""
+    shards = [panel] if isinstance(panel, torch.Tensor) else list(panel)
+    rows = shards[0].shape[0]
+    S = sum(p.shape[1] for p in shards)
     out = np.empty((rows, S), dtype=np.float64)
     host = torch.from_numpy(out)
     step = max(1, max_chunk_bytes // max(S * out.itemsize, 1))
-    for a in range(0, rows, step):
-        host[a:a + step].copy_(panel[a:a + step].to(torch.float64))
+    col = 0
+    for p in shards:
+        dst = host[:, col:col + p.shape[1]]
+        for a in range(0, rows, step):
+            dst[a:a + step].copy_(p[a:a + step].to(torch.float64))
+        col += p.shape[1]
     return out
 
 
-def _panel_frame(panel: Optional[torch.Tensor], index) -> pd.DataFrame:
-    """The frame of one per-sim panel (sims as columns), built on its host
-    array without a copy; an empty frame when panels were not collected."""
-    if panel is None or not panel.shape[-1]:
+def _panel_frame(panel, index) -> pd.DataFrame:
+    """The frame of one per-sim panel (sims as columns; a tensor or the list
+    of its shards), built on its host array without a copy; an empty frame
+    when panels were not collected."""
+    if panel is None:
+        return pd.DataFrame(index=index)
+    shards = [panel] if isinstance(panel, torch.Tensor) else panel
+    if not sum(p.shape[-1] for p in shards):
         return pd.DataFrame(index=index)
     return pd.DataFrame(_fetch_panel(panel), index=index, copy=False)
 
@@ -393,8 +419,12 @@ def _assemble_results(
     periods = ctx.periods
     freq = ctx.freq
     sim_index = pd.PeriodIndex(sim_periods, freq=freq)
-    # Per-sim panels [n+1, 6, S]: one contiguous host array per field.
-    panel_frames = [_panel_frame(arrays.panels[:, f], periods) for f in range(6)]
+    # Per-sim panels [n+1, 6, S] (or their shards): one contiguous host array per field.
+    if isinstance(arrays.panels, torch.Tensor):
+        fields = [arrays.panels[:, f] for f in range(6)]
+    else:
+        fields = [[p[:, f] for p in arrays.panels] for f in range(6)]
+    panel_frames = [_panel_frame(field, periods) for field in fields]
 
     # One device->host transfer for every small output, in their promoted
     # dtype (float32 for a float32 run, float64 for a float64 one).

@@ -12,9 +12,12 @@ single-pillar (constant-rate) tables, and the forward kernel's options —
 per-sim panels, D = 7 decisions (``extra_decisions=2``) and POLY ratchets
 whose pillar tables are zero-padded to a common height, sim counts below
 and across its 256-sim tiles, a span of one step, and bit-identical reruns.  The path
-kernel must equal its plain version bit for bit (it rounds every step as
-the torch ops do), also span by span from checkpointed states and in its
-checkpoint mode.  Rounding differs
+kernel must equal its plain version bit for bit (it fuses multiply-adds
+where XLA does, with the card's FMA against the plain version's exact
+emulation), also span by span from checkpointed states, in its checkpoint
+mode and in its window mode (a shard's columns of the whole set), and a
+valuation over a paths mesh of two shards on the card must agree with the
+one-device run.  Rounding differs
 between a kernel and its plain version (FMA contraction), so near-tie
 decisions may flip; flips are counted and bounded like ``chip_smoke.py``
 bounds them (<= 1e-4 of the paths per decision; panels and final
@@ -539,3 +542,112 @@ def test_kernels_refuse_float16_on_the_card(cuda):
     tables = simulation._path_kernel_tables(_sim_coefficients(2, 5), simulation.prng_key(1), cuda)
     with pytest.raises(ValueError, match="torch.float16"):
         simulation._launch_path_sim(tables, out, 64, False)
+
+
+# --------------------------------------------------------------------------- #
+# The paths mesh: K3's window mode and a valuation in shards on the card      #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("num_factors,n,num_sims,antithetic,window", [
+    (3, 70, 10_001, False, (0, 5_000)), (3, 70, 10_001, False, (5_000, 5_001)),
+    (3, 70, 10_001, True, (3_333, 4_000)), (1, 37, 10_001, True, (5_001, 5_000)),
+    (4, 37, 4_097, True, (2_000, 97)), (2, 33, 257, True, (128, 129)),
+], ids=["first-half", "second-half", "across-partners", "partners-only", "F4-small",
+        "tail-of-1"])
+def test_path_sim_window_equals_whole_columns(cuda, num_factors, n, num_sims, antithetic,
+                                              window, dtype):
+    """K3's window mode, in its three modes, bit for bit: the window's paths
+    equal the same columns of the one-launch whole set and the plain
+    version's window; its checkpoint pass equals the plain checkpoints'
+    window; its spans resumed from those equal the one-launch columns. An
+    antithetic window may hold drawn sims, their partners or both."""
+    coeffs = _sim_coefficients(num_factors, n)
+    key = simulation.fold_in(simulation.prng_key(12), 1)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    a, w = window
+    tables = simulation._path_kernel_tables(coeffs, key, cuda, dtype)
+    whole = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, cuda,
+                                                   dtype, tables=tables)
+    reset_launch_counts()
+    got = simulation._simulate_factor_paths_cuda(coeffs, num_sims, key, antithetic, cuda, dtype,
+                                                 window=window, tables=tables)
+    assert launch_counts()["path_sim"] == 1 and got.shape == (n, num_factors, w)
+    cols = whole[..., a:a + w].contiguous()
+    ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, cuda,
+                                                     dtype=dtype, window=window)
+    every = 16
+    ckpts = torch.empty((-(-n // every), num_factors, w), dtype=dtype, device=cuda)
+    simulation._launch_path_sim(tables, ckpts, num_sims, antithetic, every=every, window=window)
+    plain_ckpts = simulation.factor_checkpoints_reference(coeffs, num_sims, key, antithetic,
+                                                          every, cuda, dtype, window)
+    spans = []
+    for i in range(ckpts.shape[0]):
+        s0, s1 = i * every, min((i + 1) * every, n)
+        out = torch.empty((s1 - s0, num_factors, w), dtype=dtype, device=cuda)
+        spans.append(simulation._launch_path_sim(tables, out, num_sims, antithetic, y0=ckpts[i],
+                                                 step0=s0, num_steps=s1 - s0, window=window))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(bits), cols.view(bits))
+    assert torch.equal(got.view(bits), ref.view(bits))
+    assert torch.equal(ckpts.view(bits), plain_ckpts.view(bits))
+    assert torch.equal(torch.cat(spans).view(bits), cols.view(bits))
+
+
+def test_path_sim_window_refuses_outside_the_set(cuda):
+    coeffs = _sim_coefficients(2, 5)
+    tables = simulation._path_kernel_tables(coeffs, simulation.prng_key(1), cuda)
+    out = torch.empty((5, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        simulation._launch_path_sim(tables, out, 48, False, window=(20, 32))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert kernels().path_sim_window_launch(tables.keys.data_ptr(), tables.coef.data_ptr(), None,
+                                            out.data_ptr(), 48, 48, 20, 32, 0, 5, 2, 0,
+                                            stream) != 0
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["materialised", "streamed"])
+def test_mesh_valuation_on_the_card(cuda, streamed, monkeypatch):
+    """The float64 slice over two shards on one card against one device:
+    NPV within 1e-10 relative, deltas within 1e-8 of max|delta|; every kernel
+    launched once per shard where the one-device run launched it once, no
+    plain version called."""
+    import pandas as pd
+
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.parallel.mesh import paths_mesh
+
+    plain_calls = []
+    for mod, name in ((backward, "backward_update_reference"),
+                      (forward, "forward_sim_reference"),
+                      (simulation, "simulate_factor_paths_reference"),
+                      (simulation, "factor_checkpoints_reference")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _real=real, _name=name, **k: (
+            plain_calls.append(_name), _real(*a, **k))[1])
+    if streamed:
+        monkeypatch.setenv("STORAGE_TPU_MAX_PATH_BYTES", "1e6")
+    storage = tt.CmdtyStorage(
+        "D", "2021-01-01", "2021-04-01", injection_cost=0.1, withdrawal_cost=0.2,
+        ratchets=[("2021-01-01",
+                   [(0.0, -50.0, 70.0), (1000.0, -50.0, 70.0), (2500.0, -80.0, 40.0)])],
+        ratchet_interp=tt.RatchetInterp.LINEAR)
+    idx = pd.period_range("2021-01-01", "2021-04-01", freq="D")
+    fwd = pd.Series(18.0 + 4.0 * np.cos(np.arange(len(idx)) / 10.0), index=idx)
+
+    def run(mesh):
+        reset_launch_counts()
+        res = tt.three_factor_seasonal_value(
+            storage, "2021-01-01", 500.0, fwd, 0.03, None, spot_mean_reversion=12.0,
+            spot_vol=0.8, long_term_vol=0.2, seasonal_vol=0.4, num_sims=8192,
+            basis_funcs="1 + s + x_st + x_lt + x_sw + s**2", discount_deltas=False, seed=7,
+            mesh=mesh, return_sim_panels=not streamed, dtype=torch.float64, device=cuda)
+        return res, launch_counts()
+
+    one, one_counts = run(None)
+    two, two_counts = run(paths_mesh([cuda, cuda]))
+    assert two_counts == {k: 2 * v for k, v in one_counts.items()} and not plain_calls
+    assert two.npv == pytest.approx(one.npv, rel=1e-10)
+    scale = float(one.deltas.abs().max())
+    assert float((two.deltas - one.deltas).abs().max()) <= 1e-8 * scale
