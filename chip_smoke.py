@@ -7,7 +7,12 @@ Phases, each printing its own line (every failure exits non-zero):
 
 1. device  — a CUDA device must be present; prints ``nvidia-smi``'s name and
    power limit, and the host's memory.
-2. build   — compiles the three CUDA kernels from ``storage_tpu_torch/ops/csrc``.
+2. build   — compiles the three CUDA kernels from ``storage_tpu_torch/ops/csrc``;
+   native — builds the C++ host op (``csrc/storage_host_ops.cpp``, ``g++``
+   with the JAX package's flags) and computes the daily and hourly cases'
+   valuation contexts through it and through the NumPy reduction: entries
+   that differ and their largest gap, both contexts timed, and the hourly
+   intrinsic value's DP and float64 sweep timed apart.
 3. capture — one valuation of the headline case (``bench.py::build_case``:
    daily storage 2021-04-01 -> 2022-04-01, 3-factor seasonal model, 10-term
    basis, G = 100, 1,000,000 paths, seed 13), recording the inputs of one
@@ -40,6 +45,14 @@ Phases, each printing its own line (every failure exits non-zero):
    counts are checked.
 7. cancel  — the same run cancelled from its first progress report: it must
    end CANCELLED and give its device memory back.
+   excel — the Excel facade (``storage_tpu_torch.excel``) on the card: the
+   headline case as worksheet ranges through ``create_storage`` and
+   ``storage_value_three_factor``, polled through ``subscribe_status`` /
+   ``subscribe_progress`` to ``success`` and 1.0, its NPV equal to the async
+   phase's bit for bit; the intrinsic, decision-profile, tree and
+   intrinsic-tree UDFs against the direct calls and the port on the CPU,
+   and four of them at once from four threads against their sequential
+   values.  Any ``#ERROR!`` string fails it.
 8. options — POLY ratchets with ``extra_decisions=1`` at 1M paths.
 9. path_sim_stream — the path kernel's entering state, first step and
    checkpoint mode: spans from ``StreamingFactorSource(every=64)`` against
@@ -93,6 +106,12 @@ Phases, each printing its own line (every failure exits non-zero):
 17. tree — the trinomial tree on the card against the port on the CPU: the
    README oracle, the headline storage through a one-factor tree (float32 and
    float64), the intrinsic tree, float64 deltas of 12 monthly contracts.
+18. accuracy — ``tools/torch_accuracy_study.py`` at full size: the float64
+   tree at G = 500 against float32 LSMC at 262,144 paths for three seeds
+   (each |gap| within 1e-3), and float32 against float64 at the same seed.
+19. examples — the three ``examples/torch_*.py`` scripts in subprocesses on
+   the card, started together, each with its own timeout; the README
+   example's printed NPV against an in-process call.
 
 ``python3 chip_smoke.py --all-cards`` runs phases 1, 2, 5, 14 and the mesh
 phase over ``paths_mesh()``, one shard on each visible card.
@@ -253,6 +272,27 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# The headline case's inputs (bench.py::build_case, the README example's):
+# ratchet tables (inventory, withdraw rate, inject rate) by start date, the
+# monthly forward curve from 2021-04 and the zero-rate pillars.
+HEADLINE_RATCHETS = [
+    ("2021-04-01", [(0.0, -150.0, 250.0), (2000.0, -200.0, 175.0),
+                    (5000.0, -260.0, 155.0), (7000.0, -275.0, 132.0)]),
+    ("2022-10-01", [(0.0, -130.0, 260.0), (2000.0, -190.0, 190.0),
+                    (5000.0, -230.0, 165.0), (7000.0, -245.0, 148.0)]),
+]
+HEADLINE_MONTHLY_FWD = [
+    16.61, 15.68, 15.42, 15.31, 15.27, 15.13, 15.96, 17.22, 17.32, 17.66,
+    17.59, 16.81, 15.36, 14.49, 14.28, 14.25, 14.32, 14.33, 15.30, 16.58,
+    16.64, 16.79, 16.64, 15.90, 14.63,
+]
+HEADLINE_RATE_PILLARS = [
+    ("2021-04-25", 0.005), ("2021-06-01", 0.006), ("2021-08-01", 0.0072),
+    ("2021-12-01", 0.0087), ("2022-04-01", 0.0101), ("2022-12-01", 0.0115),
+    ("2023-12-01", 0.0126),
+]
+
+
 def build_case(pkg, storage_end="2022-04-01", ratchet_interp="LINEAR"):
     """The headline case of ``bench.py::build_case`` for a package with the
     ``CmdtyStorage``/``RatchetInterp`` API (this port or the JAX one);
@@ -265,28 +305,13 @@ def build_case(pkg, storage_end="2022-04-01", ratchet_interp="LINEAR"):
         storage_end=storage_end,
         injection_cost=0.01,
         withdrawal_cost=0.025,
-        ratchets=[
-            ("2021-04-01", [(0.0, -150.0, 250.0), (2000.0, -200.0, 175.0),
-                            (5000.0, -260.0, 155.0), (7000.0, -275.0, 132.0)]),
-            ("2022-10-01", [(0.0, -130.0, 260.0), (2000.0, -190.0, 190.0),
-                            (5000.0, -230.0, 165.0), (7000.0, -245.0, 148.0)]),
-        ],
+        ratchets=HEADLINE_RATCHETS,
         ratchet_interp=getattr(pkg.RatchetInterp, ratchet_interp),
     )
     monthly_index = pd.period_range(start="2021-04-25", periods=25, freq="M")
-    monthly_fwd = [
-        16.61, 15.68, 15.42, 15.31, 15.27, 15.13, 15.96, 17.22, 17.32, 17.66,
-        17.59, 16.81, 15.36, 14.49, 14.28, 14.25, 14.32, 14.33, 15.30, 16.58,
-        16.64, 16.79, 16.64, 15.90, 14.63,
-    ]
-    fwd_curve = pd.Series(monthly_fwd, index=monthly_index).resample("D").ffill()
-    rates = pd.Series(
-        [0.005, 0.006, 0.0072, 0.0087, 0.0101, 0.0115, 0.0126],
-        index=pd.PeriodIndex(freq="D", data=[
-            "2021-04-25", "2021-06-01", "2021-08-01", "2021-12-01",
-            "2022-04-01", "2022-12-01", "2023-12-01",
-        ]),
-    )
+    fwd_curve = pd.Series(HEADLINE_MONTHLY_FWD, index=monthly_index).resample("D").ffill()
+    rates = pd.Series([r for _, r in HEADLINE_RATE_PILLARS],
+                      index=pd.PeriodIndex(freq="D", data=[d for d, _ in HEADLINE_RATE_PILLARS]))
     ir_curve = rates.resample("D").asfreq().interpolate(method="linear")
 
     def settlement_rule(d):
@@ -914,7 +939,7 @@ def phase_async(main_npv):
           f"frame shapes {shapes}")
     check(counts == {"backward_update": n_steps - 1, "forward_sim": NUM_SPANS,
                      "path_sim": PATH_SETS}, f"async launches {counts}")
-    return counts
+    return counts, res.npv
 
 
 def phase_cancel():
@@ -1999,8 +2024,424 @@ def phase_tree(main_intrinsic):
     return counts
 
 
+def _inventory_space_gap(a, b):
+    """(entries that differ, largest absolute gap) of two inventory spaces."""
+    import numpy as np
+
+    pairs = ((a.min_inventory, b.min_inventory), (a.max_inventory, b.max_inventory))
+    return (sum(int((x != y).sum()) for x, y in pairs),
+            max(float(np.abs(x - y).max()) for x, y in pairs))
+
+
+def _inventory_space(ctx, use_native):
+    """``ctx``'s inventory space computed anew through the C++ host op or the
+    NumPy reduction, from the inputs ``build_valuation_context`` gives it."""
+    from storage_tpu_torch.ops.inventory_space import calculate_inventory_space
+
+    storage = ctx.storage
+    offset = (ctx.periods[0] - storage.start).n
+    return calculate_inventory_space(
+        storage.pillar_tables[offset:], storage.interp_kind,
+        storage.min_inventory_by_step[offset:], storage.max_inventory_by_step[offset:],
+        storage.inventory_loss_by_step[offset:], float(ctx.inventory),
+        storage.must_be_empty_at_end, use_native, storage.numerical_tolerance)
+
+
+def phase_native():
+    """The C++ host op (``csrc/storage_host_ops.cpp``, built with ``g++`` from
+    the checkout, outside every timed phase): the daily and hourly cases'
+    valuation contexts built on the default route, their inventory spaces
+    computed anew through the C++ op and through the NumPy reduction,
+    compared and timed, and the hourly intrinsic value's two parts (the DP on
+    the card, the float64 sweep on the host) timed."""
+    import numpy as np
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch import native
+    from storage_tpu_torch.compile import build_valuation_context
+    from storage_tpu_torch.engines import intrinsic
+
+    t0 = time.perf_counter()
+    loaded = native.native_available()
+    load_s = time.perf_counter() - t0
+    check(loaded, "the native inventory-space library did not load (no g++, or the build failed)")
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t
+
+    storage, fwd_curve, ir_curve, settlement_rule = build_case(tt)
+    hourly_storage, hourly_fwd = build_hourly_case(tt)
+    cases = {"daily": (storage, "2021-04-25", 1500.0, fwd_curve, ir_curve, settlement_rule,
+                       100, 1e-12),
+             "hourly": (hourly_storage, "2021-01-01", 1500.0, hourly_fwd, 0.01, None, 100,
+                        1e-12)}
+    lines, contexts = [], {}
+    for label, args in cases.items():
+        build_valuation_context(*args)  # warm: first calls of the pandas paths
+        ctx, ctx_s = timed(build_valuation_context, *args)
+        fast, fast_s = timed(_inventory_space, ctx, True)
+        slow, slow_s = timed(_inventory_space, ctx, False)
+        differ, gap = _inventory_space_gap(fast, slow)
+        scale = float(np.abs(fast.max_inventory).max())
+        lines.append(f"{label}: {differ} of {2 * (ctx.n_steps + 1)} entries differ, largest "
+                     f"gap {gap:.3e}; reachability {fast_s:.3f} s (C++) against {slow_s:.3f} s "
+                     f"(NumPy); build_valuation_context {ctx_s:.3f} s")
+        check(_inventory_space_gap(fast, ctx.inv_space)[0] == 0,
+              f"{label}: the context's inventory space is not the C++ op's")
+        check(gap <= 1e-12 * scale, f"{label}: C++ and NumPy inventory spaces {gap:.3e} apart")
+        contexts[label] = ctx, ctx_s
+    ctx, compile_s = contexts["hourly"]
+    terminal = np.zeros_like(ctx.grids[ctx.n_steps])
+    intrinsic._backward_values(ctx, terminal, 0, "cuda")  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    values = intrinsic._backward_values(ctx, terminal, 0, "cuda")
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t
+    t = time.perf_counter()
+    intrinsic._forward_sweep(ctx, np.asarray(values, dtype=np.float64))
+    sweep_s = time.perf_counter() - t
+    print(f"[native] {native.library_path().name} loaded in {load_s:.3f} s "
+          f"(g++ {' '.join(native.GXX_FLAGS)}); " + "; ".join(lines))
+    print(f"[native] hourly host parts: compile {compile_s:.3f} s, "
+          f"intrinsic DP {dp_s:.3f} s (card), float64 sweep {sweep_s:.3f} s (host)")
+
+
+EXCEL_SETTLE_MONTHS = 25  # the settlement table: 2021-04 .. 2023-04
+EXCEL_CONCURRENT = 4
+
+
+def excel_ranges():
+    """The headline case as worksheet ranges: the ratchets (both date groups,
+    withdraw rates positive), the daily forward curve, the rate pillars and
+    the settlement table (each month to the 20th of the next)."""
+    import pandas as pd
+    import storage_tpu_torch as tt
+
+    _, fwd_curve, _, _ = build_case(tt)
+    ratchets = [[date, inv, inject, -withdraw]
+                for date, table in HEADLINE_RATCHETS for inv, withdraw, inject in table]
+    months = pd.period_range("2021-04", periods=EXCEL_SETTLE_MONTHS, freq="M")
+    settle = [[str(m), str(m.asfreq("D", "end") + 20)] for m in months]
+    return dict(ratchets=ratchets,
+                fwd=[[str(p), float(v)] for p, v in fwd_curve.items()],
+                rates=[[d, r] for d, r in HEADLINE_RATE_PILLARS],
+                settle=settle,
+                vols=[[str(p), 0.85] for p in fwd_curve.index])
+
+
+def phase_excel(async_npv, async_counts, main_intrinsic):
+    """The Excel facade on the card: the headline case passed in as worksheet
+    ranges through ``create_storage`` and ``storage_value_three_factor``
+    (``AsyncValuation``, panels on: the async phase's route), polled through
+    the subscription UDFs; then the synchronous UDFs on the card against the
+    direct calls and the port on the CPU, and four of them at once from four
+    threads against their sequential values."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch import excel
+
+    r = excel_ranges()
+    # Each tolerance at its API default: the storage's 1e-9, the valuation's
+    # 1e-12 (a blank cell would give the add-in's 1e-10 to both).
+    handle = excel.create_storage("xl_headline", "2021-04-01", "2022-04-01", r["ratchets"],
+                                  "PiecewiseLinear", 0.01, 0.0, 0.025, 0.0,
+                                  numerical_tolerance=1e-9)
+    check(handle == "xl_headline", f"create_storage returned {handle!r}")
+    torch.cuda.synchronize()
+    tt.reset_launch_counts()
+    t0 = time.perf_counter()
+    name = excel.storage_value_three_factor(
+        "xl_calc", "xl_headline", "2021-04-25", 1500.0, r["fwd"], r["rates"],
+        spot_vol=0.85, spot_mean_reversion=91.0, long_term_vol=0.30, seasonal_vol=0.19,
+        discount_deltas=True, settle_dates=r["settle"], num_sims=NUM_SIMS,
+        basis_functions=BASIS, seed=SEED, num_grid_points=100, numerical_tolerance=1e-12,
+        device="cuda")
+    check(name == "xl_calc", f"storage_value_three_factor returned {name!r}")
+    statuses, progress = [], []
+    while True:
+        status, value = excel.subscribe_status(name), excel.subscribe_progress(name)
+        check(not str(status).startswith("#") and not str(value).startswith("#"),
+              f"subscription UDFs returned {status!r} / {value!r}")
+        if not statuses or statuses[-1] != status:
+            statuses.append(status)
+        if not progress or progress[-1] != value:
+            progress.append(value)
+        if status not in ("pending", "running"):
+            break
+        time.sleep(0.02)
+    wall = time.perf_counter() - t0
+    npv = excel.subscribe_result_property(name, "npv")
+    torch.cuda.synchronize()
+    counts = tt.launch_counts()
+    excel.calc_cache.remove(name)  # the result holds ~22 GB of panels on the host
+    gc.collect()
+    print(f"[excel] storage_value_three_factor ({NUM_SIMS} paths, panels on): statuses "
+          f"{statuses}, {len(progress)} progress values read ({progress[:3]} ... "
+          f"{progress[-2:]}), wall {wall:.3f} s to the last status; NPV {npv} (async phase "
+          f"{async_npv}); launches {counts}")
+    check(statuses[-1] == "success", f"excel calc ended {statuses[-1]!r}")
+    check(progress[-1] == 1.0 and all(b >= a for a, b in zip(progress, progress[1:])),
+          f"excel progress {progress}")
+    check(isinstance(npv, float) and npv == async_npv,
+          f"excel NPV {npv!r} differs from the async phase's {async_npv!r}")
+    check(counts == async_counts, f"excel launches {counts}, async {async_counts}")
+
+    storage, fwd_curve, ir_curve, settlement_rule = build_case(tt)
+    common = ("2021-04-25", "2021-04-01", "2022-04-01", r["ratchets"], "PiecewiseLinear",
+              0.01, 0.0, 0.025, 0.0, 1500.0, r["fwd"])
+    tail = dict(num_grid_points=100, numerical_tolerance=1e-12)
+    calls = {
+        "intrinsic": lambda dv: excel.storage_intrinsic_value(
+            *common, r["rates"], **tail, device=dv),
+        "profile": lambda dv: excel.storage_intrinsic_decision_profile(
+            *common, r["rates"], **tail, device=dv),
+        "tree": lambda dv: excel.storage_value_trinomial_tree(
+            *common, r["vols"], TREE_MEAN_REVERSION, r["rates"], **tail, device=dv),
+        "intrinsic_tree": lambda dv: excel.storage_value_intrinsic(
+            *common, r["rates"], **tail, device=dv),
+    }
+    seconds, card, cpu = {}, {}, {}
+    for label, call in calls.items():
+        call("cuda")  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card[label] = call("cuda")
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t
+        cpu[label] = call("cpu")
+        for out in (card[label], cpu[label]):
+            check(not (isinstance(out, str) and out.startswith("#")), f"excel {label}: {out}")
+    with ThreadPoolExecutor(max_workers=EXCEL_CONCURRENT) as pool:
+        futures = {label: pool.submit(call, "cuda") for label, call in calls.items()}
+        concurrent = {label: f.result() for label, f in futures.items()}
+    direct = tt.intrinsic_value(storage, "2021-04-25", 1500.0, fwd_curve, ir_curve, None,
+                                100, 1e-12, device="cuda")
+    settled = tt.intrinsic_value(storage, "2021-04-25", 1500.0, fwd_curve, ir_curve,
+                                 settlement_rule, 100, 1e-12, device="cuda")
+    profile = direct.profile
+    direct_table = [[period.start_time.to_pydatetime(),
+                     float(profile["inject_withdraw_volume"].iloc[i]),
+                     float(profile["cmdty_consumed"].iloc[i])]
+                    for i, period in enumerate(profile.index)]
+    tree_rel = abs(card["tree"] / cpu["tree"] - 1.0)
+    itree_rel = abs(card["intrinsic_tree"] / cpu["intrinsic_tree"] - 1.0)
+    print(f"[excel] sync UDFs on the card: intrinsic {card['intrinsic']!r} (direct call "
+          f"{direct.npv!r}; settled as the main phase {settled.npv!r}), decision profile "
+          f"{len(card['profile'])} rows, tree {card['tree']:.4f} (cpu {cpu['tree']:.4f}, rel "
+          f"{tree_rel:.2e}), intrinsic tree {card['intrinsic_tree']:.4f} (cpu "
+          f"{cpu['intrinsic_tree']:.4f}, rel {itree_rel:.2e}); seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f"; {EXCEL_CONCURRENT} threads at once equal to sequential: "
+          f"{all(concurrent[k] == card[k] for k in calls)}")
+    check(card["intrinsic"] == direct.npv,
+          f"excel intrinsic {card['intrinsic']} != direct {direct.npv}")
+    check(card["profile"] == direct_table, "excel decision profile differs from the direct call's")
+    check(settled.npv == main_intrinsic,
+          f"intrinsic_value settled as the main phase {settled.npv} != its {main_intrinsic}")
+    check(tree_rel <= TREE_NPV_RTOL["float32"], f"excel tree card against cpu {tree_rel:.2e}")
+    check(itree_rel <= TREE_NPV_RTOL["float32"],
+          f"excel intrinsic tree card against cpu {itree_rel:.2e}")
+    for label in calls:
+        check(concurrent[label] == card[label],
+              f"excel {label} from {EXCEL_CONCURRENT} threads differs from its sequential value")
+    return counts
+
+
+
+ACCURACY_GAP_MAX = 1e-3  # the study's own criterion, per seed
+ACCURACY_CAPTURE_LAUNCH = 29  # the backward launch recorded: mid-horizon of 58
+
+
+class _dtype_recording:
+    """While a run makes them, keep on the card (cloned), for each element
+    type, the operands of its ``backward_launch``-th K1 launch ("K1") and of
+    its first K2 launch ("K2"), and the parameters of its first path set
+    ("K3"); and count each kernel's launches by element type."""
+
+    def __init__(self, backward_launch):
+        self.backward_launch = backward_launch
+        self.recorded, self.calls = {}, {}
+
+    def __enter__(self):
+        from storage_tpu_torch import valuation
+        from storage_tpu_torch.engines import lsmc
+
+        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths)
+        wanted = {"K1": self.backward_launch, "K2": 1, "K3": 1}
+
+        def note(kernel, dtype, operands):
+            key = (kernel, str(dtype).split(".")[-1])
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if self.calls[key] == wanted[kernel]:
+                self.recorded[key] = operands()
+
+        def recording(kernel, tensor_arg, real):
+            def call(*args, **kw):
+                note(kernel, args[tensor_arg].dtype,
+                     lambda: (tuple(a.clone() for a in args), kw))
+                return real(*args, **kw)
+            return call
+
+        def record_sim(coeffs, num_sims, **kw):
+            note("K3", kw["dtype"], lambda: (coeffs, num_sims, kw["key"], kw["antithetic"]))
+            return self.real[2](coeffs, num_sims, **kw)
+
+        lsmc.backward_update = recording("K1", 2, self.real[0])
+        lsmc.forward_sim = recording("K2", 0, self.real[1])
+        valuation.simulate_factor_paths = record_sim
+        return self
+
+    def __exit__(self, *exc):
+        from storage_tpu_torch import valuation
+        from storage_tpu_torch.engines import lsmc
+
+        lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths = self.real
+
+
+def _check_path_set(label, coeffs, num_sims, key, antithetic, dtype):
+    """K3 against its plain version on one path set, bit for bit, then both
+    timed there beside the bound."""
+    import torch
+    from storage_tpu_torch.models import simulation
+
+    max_err = _compare_paths(label, coeffs, num_sims, key, antithetic, dtype)
+    n, F = coeffs.decay.shape
+    ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
+        coeffs, num_sims, key, antithetic, "cuda", dtype), 5)
+    plain_ms = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
+        coeffs, num_sims, key, antithetic, "cuda", dtype=dtype), 1)
+    bound_ms, bound_by = k3_bound(n, num_sims, F, num_sims // 2 if antithetic else num_sims,
+                                  itemsize=torch.empty((), dtype=dtype).element_size())
+    print(f"[{label}] {n} steps x {F} factors x {num_sims} sims: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share=bound_ms / ms, library_ms=None)
+
+
+def phase_accuracy():
+    """``tools/torch_accuracy_study.py`` at full size on the card: the float64
+    tree at G = 500, float32 LSMC at 262,144 paths for seeds 11 / 23 / 47
+    (K1 at G = 500), and the float32-against-float64 drift on seed 11 at the
+    full path count.  Then each kernel against its plain version, in both
+    element types, on the launches the study made (the one-factor quartic
+    basis at G = 500): K1 on the first valuation's mid-horizon launch, K2 on
+    its forward pass, K3 bit for bit on its first path set.  Returns the
+    study's launch counts and, per kernel, the variants with their launches
+    in the study by element type."""
+    import math
+    import torch
+    import storage_tpu_torch as tt
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_accuracy_study as study
+
+    tt.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _dtype_recording(ACCURACY_CAPTURE_LAUNCH) as rec:
+        line = study.run_study(study.NUM_SIMS, study.SEEDS, "cuda")
+    wall = time.perf_counter() - t0
+    counts = tt.launch_counts()
+    per_seed = ", ".join(f"seed {k}: {v['npv']:.4f} (gap {v['rel_gap']:+.3e}, {v['wall_s']:.3f} s)"
+                         for k, v in line["per_seed"].items())
+    print(f"[accuracy] tree (float64, G = {study.GRID}) {line['tree_npv']:.6f} in "
+          f"{line['tree_wall_s']:.3f} s; LSMC float32 at {line['drift_leg_sims']} paths: {per_seed}; "
+          f"worst |gap| {line['worst_abs_rel_gap']:.3e}; float64 {line['f64_npv']:.6f} in "
+          f"{line['f64_wall_s']:.3f} s, float32 against float64 drift "
+          f"{line['f32_vs_f64_rel_drift']:+.3e} at {line['drift_leg_sims']} paths; wall "
+          f"{wall:.3f} s; launches {counts}, by element type {rec.calls}")
+    print(json.dumps(line))
+    check(all(math.isfinite(v["npv"]) for v in line["per_seed"].values())
+          and math.isfinite(line["tree_npv"]) and math.isfinite(line["f64_npv"]),
+          "accuracy study values not finite")
+    for seed, v in line["per_seed"].items():
+        check(abs(v["rel_gap"]) <= ACCURACY_GAP_MAX,
+              f"accuracy seed {seed}: |gap| {abs(v['rel_gap']):.3e} > {ACCURACY_GAP_MAX}")
+    check(all(c > 0 for c in counts.values()), f"accuracy launches {counts}")
+    names = {"K1": "backward_update", "K2": "forward_sim", "K3": "path_sim"}
+    for kernel, name in names.items():
+        by_type = {t: c for (k, t), c in rec.calls.items() if k == kernel}
+        check(sorted(by_type) == ["float32", "float64"] and sum(by_type.values()) == counts[name],
+              f"accuracy {kernel} launches by element type {by_type}, in all {counts[name]}")
+    check(sorted(rec.recorded) == sorted((k, t) for k in names for t in ("float32", "float64")),
+          f"the accuracy run recorded {sorted(rec.recorded)}")
+    variants = {}
+    for dtype in ("float32", "float64"):
+        suffix = "" if dtype == "float32" else " f64"
+        prefix = "" if dtype == "float32" else "f64_"
+        checked = {
+            "K1": _check_backward(f"K1 backward_update accuracy{suffix}",
+                                  *rec.recorded.pop(("K1", dtype)), min_tiles_per_block=2),
+            "K2": _check_forward(f"K2 forward_sim accuracy{suffix}",
+                                 *rec.recorded.pop(("K2", dtype)), min_tiles_per_block=1),
+            "K3": _check_path_set(f"K3 path_sim accuracy{suffix}",
+                                  *rec.recorded.pop(("K3", dtype)), getattr(torch, dtype)),
+        }
+        for kernel, m in checked.items():
+            extra = {} if dtype == "float32" else {"source": F64_SOURCES[kernel]}
+            variants.setdefault(kernel, {})[f"{prefix}accuracy"] = dict(
+                m, **extra, launches_accuracy=rec.calls[(kernel, dtype)])
+    return counts, variants
+
+
+EXAMPLES = {  # script, arguments, timeout (s)
+    "readme": (["examples/torch_readme_example.py"], 300),
+    "async_and_cache": (["examples/torch_async_and_cache.py"], 300),
+    "multichip_sharding": (["examples/torch_multichip_sharding.py"], 300),
+}
+
+
+def phase_examples():
+    """The three ``examples/torch_*.py`` scripts on the card, in subprocesses
+    started together, each with its own timeout; the README example's printed
+    NPV against an in-process call on the same inputs."""
+    import re
+    import storage_tpu_torch as tt
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, *argv], cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, (argv, _) in EXAMPLES.items()}
+    outputs = {}
+    try:
+        for name, proc in procs.items():
+            try:
+                outputs[name] = proc.communicate(timeout=EXAMPLES[name][1])
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise SmokeFailure(f"example {name} timed out after {EXAMPLES[name][1]} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for name, (stdout, stderr) in outputs.items():
+        check(procs[name].returncode == 0,
+              f"example {name} exited {procs[name].returncode}:\n{stderr[-2000:]}")
+    npv_lines = {name: [line for line in out.splitlines() if "NPV" in line]
+                 for name, (out, _) in outputs.items()}
+    res = tt.three_factor_seasonal_value(**case_kwargs(tt, 2000, 12), device="cuda")
+    expected = f"Full NPV:\t{res.npv:,.0f}"
+    print(f"[examples] three scripts on the card at once in {wall:.3f} s; "
+          + "; ".join(f"{name}: {lines}" for name, lines in npv_lines.items())
+          + f"; in-process README call {res.npv:.4f}")
+    check(expected in outputs["readme"][0].splitlines(),
+          f"README example printed {npv_lines['readme']}, the in-process call {expected!r}")
+    check(re.search(r"^mesh: PathsMesh\(\['cuda:0'", outputs["multichip_sharding"][0],
+                    re.MULTILINE) is not None, "the mesh example did not build a mesh of cards")
+    check(re.search(r"^status:   success$", outputs["async_and_cache"][0], re.MULTILINE)
+          is not None, "the async example did not end in success")
+
+
 def main(argv) -> int:
     all_cards = "--all-cards" in argv
+    started = time.perf_counter()
     try:
         import torch
 
@@ -2009,6 +2450,7 @@ def main(argv) -> int:
         from storage_tpu_torch.parallel.mesh import paths_mesh
 
         phase_build()
+        phase_native()
         if all_cards:
             return main_all_cards(card)
         captured = phase_capture()
@@ -2025,9 +2467,11 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         main_run = phase_main()
         counts, main_npv, main_intrinsic, main_peak = main_run
-        async_counts = phase_async(main_npv)
+        async_counts, async_npv = phase_async(main_npv)
         gc.collect()
         phase_cancel()
+        excel_counts = phase_excel(async_npv, async_counts, main_intrinsic)
+        gc.collect()
         options_counts = phase_options(main_npv)
         stream_counts = phase_stream_main(main_npv, main_intrinsic, main_peak)
         hourly_counts, k1_hourly, k2_hourly = phase_hourly()
@@ -2047,6 +2491,10 @@ def main(argv) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tree_counts = phase_tree(main_intrinsic)
+        accuracy_counts, accuracy_variants = phase_accuracy()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_examples()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2056,7 +2504,8 @@ def main(argv) -> int:
     paths = {"main": counts, "async": async_counts, "options": options_counts,
              "stream_main": stream_counts, "hourly": hourly_counts, "reprice": reprice_counts,
              "spot_sim": spot_counts, "f64_main": f64_counts, "mesh": mesh_counts,
-             "mesh_f64": mesh64_counts, "tree": tree_counts}
+             "mesh_f64": mesh64_counts, "tree": tree_counts, "excel": excel_counts,
+             "accuracy": accuracy_counts}
     # The float64 variants' launches on f64_main, by mode: K2 once per span,
     # the tail one of them; K3 one checkpoint pass and then spans per path set.
     f64_launches = {
@@ -2089,22 +2538,24 @@ def main(argv) -> int:
              launches_by_path={p: c["backward_update"] for p, c in paths.items()},
              variants={"D5": k1_d5, f"G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}": k1_large,
                        **k1_hourly, **f64_variants("K1", k1_f64),
-                       **mesh_variants("backward_update", k1_mesh)}),
+                       **mesh_variants("backward_update", k1_mesh),
+                       **accuracy_variants["K1"]}),
         dict(name="forward_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/forward_sim.cu",
              replaces="storage_tpu/ops/pallas_forward.py:96",
              launches=counts["forward_sim"], **k2,
              launches_by_path={p: c["forward_sim"] for p, c in paths.items()},
              variants={**k2_variants, **k2_hourly, **f64_variants("K2", k2_f64),
-                       **mesh_variants("forward_sim", k2_mesh)}),
+                       **mesh_variants("forward_sim", k2_mesh), **accuracy_variants["K2"]}),
         dict(name="path_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/path_sim.cu",
              replaces="storage_tpu/models/simulation.py:264 (XLA code, no Pallas kernel)",
              launches=counts["path_sim"], **k3,
              launches_by_path={p: c["path_sim"] for p, c in paths.items()},
              variants={**k3_variants, **f64_variants("K3", k3_f64),
-                       **mesh_variants("path_sim", k3_mesh)}),
+                       **mesh_variants("path_sim", k3_mesh), **accuracy_variants["K3"]}),
     ]
+    print(f"[wall] chip_smoke {time.perf_counter() - started:.3f} s, the build included")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ the per-constraint ``InventorySpaceUpperBound``/``LowerBound`` solvers
 ``PiecewiseLinearInjectWithdrawConstraint.cs:74-160``,
 ``StepInjectWithdrawConstraint.cs:81-166``).
 
-This runs **once per valuation on the host** in float64 NumPy — it depends only
-on the storage configuration and starting inventory, not on simulated paths,
-so it stays off the device (see SURVEY.md §7 "Hard parts").
+This runs **once per valuation on the host** in float64, through the C++ host
+op where it loads and else in NumPy — it depends only on the storage
+configuration and starting inventory, not on simulated paths, so it stays off
+the device (see SURVEY.md §7 "Hard parts").
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Sequence
 import numpy as np
 
 from ..exceptions import InventoryConstraintsCannotBeFulfilledError
-from .ratchets import INTERP_LINEAR, INTERP_POLY, interp_rates_host
+from .ratchets import INTERP_LINEAR, INTERP_POLY, INTERP_STEP, interp_rates_host
 
 
 def _solve_linear(x1: float, y1: float, x2: float, y2: float, y: float) -> float:
@@ -231,13 +232,33 @@ def calculate_inventory_space(
     loss: np.ndarray,  # [n] fractional inventory loss per decision step
     starting_inventory: float,
     must_be_empty_at_end: bool,
+    use_native: bool = True,
     numerical_tolerance: float = 1e-9,
 ) -> InventorySpace:
     """Forward/backward reachability intersection (``StorageHelper.cs:39-107``).
 
-    The NumPy implementation only: the C++ host fast path of the JAX package
-    (``csrc/storage_host_ops.cpp``) is not ported yet (ROADMAP Queue 1).
+    LINEAR and STEP ratchets go to the C++ host op (``csrc/storage_host_ops.cpp``
+    through :mod:`storage_tpu_torch.native`, the JAX package's library and
+    bits) when it loads; POLY ratchets, ``use_native=False`` and a missing
+    library take this NumPy implementation.
     """
+    if use_native and interp_kind in (INTERP_LINEAR, INTERP_STEP):
+        from ..native import inventory_space_native
+
+        native_result = inventory_space_native(
+            [np.asarray(t, dtype=np.float64) for t in pillar_tables],
+            interp_kind,
+            np.asarray(min_inv, dtype=np.float64),
+            np.asarray(max_inv, dtype=np.float64),
+            np.asarray(loss, dtype=np.float64),
+            float(starting_inventory),
+            must_be_empty_at_end,
+        )
+        if native_result is not None:
+            return InventorySpace(
+                min_inventory=native_result[0], max_inventory=native_result[1]
+            )
+
     n = len(pillar_tables)
     if n + 1 != len(min_inv) or n + 1 != len(max_inv) or n != len(loss):
         raise ValueError("Inconsistent array lengths in calculate_inventory_space.")
