@@ -112,6 +112,21 @@ Phases, each printing its own line (every failure exits non-zero):
 19. examples — the three ``examples/torch_*.py`` scripts in subprocesses on
    the card, started together, each with its own timeout; the README
    example's printed NPV against an in-process call.
+20. precision — ``tools/torch_precision_study.py`` at full size: both
+   configurations' float64 path sets drawn once at 1M paths (the path
+   kernel's float64 one-launch mode) and valued by ``run_lsmc`` in float64
+   and, rounded, in float32 (each |NPV32 / NPV64 - 1| within 1e-3); then the
+   float64 kernels against their plain versions on launches of this route
+   recorded from a second run: K1 at B = 9 (the constant-rate basis), K2 in
+   one launch over the bench configuration's whole horizon, K3's one-launch
+   path set over the whole horizon bit for bit.
+21. gui — ``examples/torch_storage_gui.py``'s test data at 1M paths through
+   the background task its Calculate button starts (``AsyncValuation``,
+   per-sim panels on): success, progress ending at 1.0, the NPV equal bit
+   for bit to a direct call on the same route; the same run cancelled.
+22. notebooks — each ``examples/torch_*.ipynb``'s code cells in order in one
+   namespace with ``DEVICE = "cuda"``, read with ``json``; the cells tagged
+   ``needs-<module>`` for a module the machine lacks are left out.
 
 ``python3 chip_smoke.py --all-cards`` runs phases 1, 2, 5, 14 and the mesh
 phase over ``paths_mesh()``, one shard on each visible card.
@@ -773,6 +788,14 @@ def _compare_paths(label, coeffs, num_sims, key, antithetic, dtype=None, steps=N
         got = got[:steps]
     ref = simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic, "cuda",
                                                      dtype=dtype, num_steps=steps)
+    return _paths_agree(label, got, ref, antithetic)
+
+
+def _paths_agree(label, got, ref, antithetic):
+    """``got`` (the kernel's paths) equal to ``ref`` (its plain version's) bit
+    for bit; returns max |diff|."""
+    import torch
+
     torch.cuda.synchronize()
     check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
           f"{label}: paths {tuple(got.shape)} not finite or not {tuple(ref.shape)}")
@@ -2252,31 +2275,45 @@ def phase_excel(async_npv, async_counts, main_intrinsic):
 
 
 
+def _tool(name):
+    """A module of ``tools/``."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    return importlib.import_module(name)
+
+
 ACCURACY_GAP_MAX = 1e-3  # the study's own criterion, per seed
 ACCURACY_CAPTURE_LAUNCH = 29  # the backward launch recorded: mid-horizon of 58
 
 
 class _dtype_recording:
     """While a run makes them, keep on the card (cloned), for each element
-    type, the operands of its ``backward_launch``-th K1 launch ("K1") and of
-    its first K2 launch ("K2"), and the parameters of its first path set
-    ("K3"); and count each kernel's launches by element type."""
+    type of ``dtypes``, the operands of its ``backward_launch``-th K1 launch
+    ("K1") and of its first K2 launch ("K2"), and the parameters of its first
+    path set ("K3") (``wanted`` maps kernels to the launches to keep in place
+    of these); and count each kernel's launches by element type.  Path sets
+    are seen where ``draws_from`` (default ``storage_tpu_torch.valuation``)
+    calls ``simulate_factor_paths`` with keywords."""
 
-    def __init__(self, backward_launch):
-        self.backward_launch = backward_launch
+    def __init__(self, backward_launch=None, wanted=None, dtypes=("float32", "float64"),
+                 draws_from=None):
+        self.wanted = {"K1": backward_launch, "K2": 1, "K3": 1} if wanted is None else wanted
+        self.dtypes, self.draws_from = dtypes, draws_from
         self.recorded, self.calls = {}, {}
 
     def __enter__(self):
         from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths)
-        wanted = {"K1": self.backward_launch, "K2": 1, "K3": 1}
+        self.draws_from = self.draws_from or valuation
+        self.real = (lsmc.backward_update, lsmc.forward_sim,
+                     self.draws_from.simulate_factor_paths)
 
         def note(kernel, dtype, operands):
             key = (kernel, str(dtype).split(".")[-1])
             self.calls[key] = self.calls.get(key, 0) + 1
-            if self.calls[key] == wanted[kernel]:
+            if self.calls[key] == self.wanted.get(kernel) and key[1] in self.dtypes:
                 self.recorded[key] = operands()
 
         def recording(kernel, tensor_arg, real):
@@ -2292,28 +2329,38 @@ class _dtype_recording:
 
         lsmc.backward_update = recording("K1", 2, self.real[0])
         lsmc.forward_sim = recording("K2", 0, self.real[1])
-        valuation.simulate_factor_paths = record_sim
+        self.draws_from.simulate_factor_paths = record_sim
         return self
 
     def __exit__(self, *exc):
-        from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths = self.real
+        lsmc.backward_update, lsmc.forward_sim, self.draws_from.simulate_factor_paths = self.real
 
 
-def _check_path_set(label, coeffs, num_sims, key, antithetic, dtype):
+def _check_path_set(label, coeffs, num_sims, key, antithetic, dtype, plain_once=False):
     """K3 against its plain version on one path set, bit for bit, then both
-    timed there beside the bound."""
+    timed there beside the bound.  With ``plain_once`` the plain version runs
+    once, timed and compared (the float64 one, which emulates the kernel's
+    fused multiply-adds, takes ~13 s at ``[341, 3, 1M]``)."""
     import torch
     from storage_tpu_torch.models import simulation
 
-    max_err = _compare_paths(label, coeffs, num_sims, key, antithetic, dtype)
+    def plain():
+        return simulation.simulate_factor_paths_reference(coeffs, num_sims, key, antithetic,
+                                                          "cuda", dtype=dtype)
+
+    if plain_once:
+        plain_ms, ref = timed_once(plain)
+        max_err = _paths_agree(label, simulation._simulate_factor_paths_cuda(
+            coeffs, num_sims, key, antithetic, "cuda", dtype), ref, antithetic)
+        del ref
+    else:
+        max_err = _compare_paths(label, coeffs, num_sims, key, antithetic, dtype)
+        plain_ms = cuda_ms(plain, 1)
     n, F = coeffs.decay.shape
     ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
         coeffs, num_sims, key, antithetic, "cuda", dtype), 5)
-    plain_ms = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
-        coeffs, num_sims, key, antithetic, "cuda", dtype=dtype), 1)
     bound_ms, bound_by = k3_bound(n, num_sims, F, num_sims // 2 if antithetic else num_sims,
                                   itemsize=torch.empty((), dtype=dtype).element_size())
     print(f"[{label}] {n} steps x {F} factors x {num_sims} sims: kernel {ms:.3f} ms, plain "
@@ -2336,9 +2383,7 @@ def phase_accuracy():
     import torch
     import storage_tpu_torch as tt
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
-    import torch_accuracy_study as study
-
+    study = _tool("torch_accuracy_study")
     tt.reset_launch_counts()
     t0 = time.perf_counter()
     with _dtype_recording(ACCURACY_CAPTURE_LAUNCH) as rec:
@@ -2439,6 +2484,315 @@ def phase_examples():
           is not None, "the async example did not end in success")
 
 
+PRECISION_NPV_RTOL = 1e-3  # the study's criterion (the accuracy study's), per configuration
+PRECISION_CAPTURE_LAUNCH = 182  # the constant-rate K1 launch recorded: mid-horizon of 365
+
+
+def count_precision(num_sims, device="cuda"):
+    """The precision study once, each configuration's launches counted by
+    kernel and element type.  Returns the study's line and, per
+    configuration (its function's name), those counts."""
+    import contextlib
+    from storage_tpu_torch.models import simulation
+
+    calls = {}
+
+    @contextlib.contextmanager
+    def counting(make_cfg):
+        with _dtype_recording(wanted={}, draws_from=simulation) as rec:
+            yield
+        calls[make_cfg.__name__] = rec.calls
+
+    return _tool("torch_precision_study").run_study(num_sims, device, around=counting), calls
+
+
+def record_precision(num_sims, device="cuda"):
+    """The precision study's route once more, keeping on the device (cloned)
+    the float64 operands the kernels are held against: the constant-rate
+    configuration's mid-horizon K1 launch (B = 9), and the bench
+    configuration's K2 launch (one over its whole horizon) and its first
+    float64 path set.  Returns those ("K1", "K2", "K3") and, per
+    configuration, each kernel's launches by element type in this run."""
+    from storage_tpu_torch.models import simulation
+
+    study = _tool("torch_precision_study")
+    recorded, calls = {}, {}
+    for make_cfg, wanted in ((study.constant_rate_config, {"K1": PRECISION_CAPTURE_LAUNCH}),
+                             (study.bench_config, {"K2": 1, "K3": 1})):
+        cfg = make_cfg(num_sims)
+        ctx, coeffs, spec = study.build(cfg)
+        with _dtype_recording(wanted=wanted, dtypes=("float64",), draws_from=simulation) as rec:
+            study.run_legs((cfg, ctx, coeffs, spec), study.draw(coeffs, num_sims, device), device)
+        recorded.update({kernel: ops for (kernel, _), ops in rec.recorded.items()})
+        calls[make_cfg.__name__] = rec.calls
+    return recorded, calls
+
+
+def phase_precision():
+    """``tools/torch_precision_study.py`` at full size on the card: both
+    configurations at 1M paths, the float64 path sets drawn once (K3's
+    float64 one-launch mode) and valued by ``run_lsmc`` in float64 and,
+    rounded, in float32; each |NPV32 / NPV64 - 1| within PRECISION_NPV_RTOL.
+    The launches are counted per configuration in this run.  Then the
+    float64 kernels against their plain versions on launches of this route,
+    which no other path makes, kept by a second run that must launch as the
+    first did: K1 at B = 9, K2 in one launch over the whole horizon, K3's
+    one-launch path set over the whole horizon bit for bit (its plain
+    version run once, compared and timed).  Returns the study's launch
+    counts and the new variants."""
+    import math
+    import torch
+    import storage_tpu_torch as tt
+
+    study = _tool("torch_precision_study")
+    tt.reset_launch_counts()
+    t0 = time.perf_counter()
+    line, calls = count_precision(study.NUM_SIMS)
+    wall = time.perf_counter() - t0
+    counts = tt.launch_counts()
+    for row in line["rows"]:
+        print(f"[precision] {study.table_line(row)}")
+    for name, leg in line["legs"].items():
+        print(f"[precision] {name}: draws {leg['draw_s']:.3f} s; float64 leg "
+              f"{leg['f64_wall_s']:.3f} s, peak {leg['f64_peak_bytes'] / 2**30:.3f} GiB; float32 "
+              f"leg {leg['f32_wall_s']:.3f} s, peak {leg['f32_peak_bytes'] / 2**30:.3f} GiB")
+    print(f"[precision] study wall {wall:.3f} s on {line['card']}; launches {counts}, by "
+          f"configuration and element type {calls}")
+    print(json.dumps(line))
+    for row in line["rows"]:
+        check(math.isfinite(row["npv_f64"]) and math.isfinite(row["npv_rel_diff"]),
+              f"precision {row['config']}: NPVs not finite")
+        check(row["npv_rel_diff"] <= PRECISION_NPV_RTOL,
+              f"precision {row['config']}: |NPV32 / NPV64 - 1| {row['npv_rel_diff']:.3e} > "
+              f"{PRECISION_NPV_RTOL}")
+    names = {"K1": "backward_update", "K2": "forward_sim", "K3": "path_sim"}
+    for kernel, name in names.items():
+        by_type = {t: sum(c.get((kernel, t), 0) for c in calls.values())
+                   for t in ("float32", "float64")}
+        check(by_type["float64"] > 0 and sum(by_type.values()) == counts[name],
+              f"precision {kernel} launches by element type {by_type}, in all {counts[name]}")
+    check(not any(("K3", "float32") in c for c in calls.values()),
+          "precision drew float32 path sets")
+
+    recorded, recorded_calls = record_precision(study.NUM_SIMS)
+    check(sorted(recorded) == ["K1", "K2", "K3"], f"the precision run recorded {sorted(recorded)}")
+    check(recorded_calls == calls,
+          f"precision recording run launched {recorded_calls}, the study {calls}")
+    k1_args, k1_kw = recorded.pop("K1")
+    check(k1_args[2].dtype == torch.float64 and k1_kw["spec"].num_basis == 9,
+          "precision K1: not the float64 B = 9 launch")
+    k1 = _check_backward("K1 backward_update precision f64 B=9", k1_args, k1_kw,
+                         min_tiles_per_block=2)
+    del k1_args
+    k2_args, k2_kw = recorded.pop("K2")
+    check(k2_args[0].dtype == torch.float64 and k2_args[0].shape[0] == 340,
+          f"precision K2: {tuple(k2_args[0].shape)} {k2_args[0].dtype}, not the bench "
+          f"configuration's 340 float64 steps")
+    k2 = _check_forward("K2 forward_sim precision f64 horizon", k2_args, k2_kw,
+                        min_tiles_per_block=2)
+    del k2_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3 = _check_path_set("K3 path_sim precision f64", *recorded.pop("K3"), torch.float64,
+                         plain_once=True)
+    const, bench = calls["constant_rate_config"], calls["bench_config"]
+    variants = {
+        "K1": {"f64_precision": dict(k1, source=F64_SOURCES["K1"],
+                                     launches_precision=const[("K1", "float64")])},
+        "K2": {"f64_horizon": dict(k2, source=F64_SOURCES["K2"],
+                                   launches_precision=bench[("K2", "float64")])},
+        "K3": {"launches_precision": const[("K3", "float64")] + bench[("K3", "float64")],
+               "precision": k3},
+    }
+    return counts, variants
+
+
+GUI_CAPTURE_LAUNCH = 182  # the K1 launch recorded: mid-horizon of the GUI run's 364
+NOTEBOOK_CAPTURE_LAUNCH = 170  # the K1 launch recorded: mid-horizon of the first notebook's 340
+
+
+def _hold_recorded(label, rec, counts, min_tiles_per_block):
+    """The float32 launches that a phase's run kept (``_dtype_recording``)
+    held against their plain versions: K1, K2 (with per-sim panels where the
+    run wrote them), K3 bit for bit.  The run's launches, counted by element
+    type, must all be float32 and be the phase's.  Returns per kernel the
+    variant ``label`` with its launches in the run (``launches_<label>``)."""
+    import torch
+
+    names = {"K1": "backward_update", "K2": "forward_sim", "K3": "path_sim"}
+    for kernel, name in names.items():
+        check(rec.calls.get((kernel, "float32"), 0) == counts[name]
+              and (kernel, "float64") not in rec.calls,
+              f"{label} {kernel} launches by element type {rec.calls}, in all {counts[name]}")
+    check(sorted(rec.recorded) == sorted((k, "float32") for k in names),
+          f"the {label} run recorded {sorted(rec.recorded)}")
+    k2_args, k2_kw = rec.recorded.pop(("K2", "float32"))
+    panels = k2_kw.get("panels") is not None
+    checked = {
+        "K1": _check_backward(f"K1 backward_update {label}", *rec.recorded.pop(("K1", "float32")),
+                              min_tiles_per_block=min_tiles_per_block),
+        "K2": _check_forward(f"K2 forward_sim {label}", k2_args, dict(k2_kw, panels=None),
+                             panels=panels, min_tiles_per_block=min_tiles_per_block),
+        "K3": _check_path_set(f"K3 path_sim {label}", *rec.recorded.pop(("K3", "float32")),
+                              torch.float32),
+    }
+    return {kernel: {label: dict(m, **{f"launches_{label}": rec.calls[(kernel, "float32")]})}
+            for kernel, m in checked.items()}
+
+
+def phase_gui():
+    """``examples/torch_storage_gui.py``'s valuation on the card: the GUI's
+    test data at 1M paths through ``valuation_task`` (the background run its
+    Calculate button starts, on the port's ``AsyncValuation``), its progress
+    and status seen as the button's subscribers see them; the NPV equal bit
+    for bit to a direct ``three_factor_seasonal_value`` call on the same
+    route (hooks, so the chunked driver; per-sim panels on); then the same
+    run cancelled from its first progress report.  Each kernel is held
+    against its plain version on a launch of the run: K1 mid-horizon, K2's
+    first span (with panels), K3's first path set.  Returns the run's
+    launches and the variants ``gui``."""
+    import dataclasses
+    import torch
+    import storage_tpu_torch as tt
+    from storage_tpu_torch.runtime import CalcStatus
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import torch_storage_gui as gui
+
+    inputs = dataclasses.replace(gui.test_data_inputs(), num_sims=NUM_SIMS)
+    task = gui.valuation_task(inputs, device="cuda")
+    progress, statuses = [], []
+    task.subscribe_progress(progress.append)
+    task.subscribe_status(statuses.append)
+    tt.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _dtype_recording(GUI_CAPTURE_LAUNCH, dtypes=("float32",)) as rec:
+        res = task.start().result(timeout=900)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tt.launch_counts()
+    npv, intrinsic, n_steps = res.npv, res.intrinsic_npv, len(res.expected_profile) - 1
+    del res
+    gc.collect()
+    variants = _hold_recorded("gui", rec, counts, min_tiles_per_block=2)
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    direct = tt.three_factor_seasonal_value(**gui.valuation_kwargs(inputs),
+                                            on_progress_update=lambda p: None, device="cuda")
+    direct_wall = time.perf_counter() - t0
+    direct_npv = direct.npv
+    del direct
+    gc.collect()
+    cancelled = gui.valuation_task(inputs, device="cuda")
+    cancelled.subscribe_progress(lambda p: p > 0.0 and cancelled.cancel())
+    t0 = time.perf_counter()
+    try:
+        cancelled.start().result(timeout=900)
+        raised = False
+    except tt.ValuationCancelledError:
+        raised = True
+    cancel_wall = time.perf_counter() - t0
+    print(f"[gui] test data at {NUM_SIMS} paths x {n_steps} steps through valuation_task: "
+          f"wall {wall:.3f} s, status {statuses[-1].name}, {len(progress) - 1} progress reports "
+          f"ending at {progress[-1]}, NPV {npv:.4f}, intrinsic {intrinsic:.4f}, launches "
+          f"{counts}; direct call NPV {direct_npv:.4f} in {direct_wall:.3f} s; cancelled run "
+          f"{cancelled.status.name} after {cancel_wall:.3f} s")
+    check(statuses[-1] == CalcStatus.SUCCESS and task.status == CalcStatus.SUCCESS,
+          f"gui status {statuses}")
+    check(progress[-1] == 1.0 and progress == sorted(progress), f"gui progress {progress}")
+    check(npv == direct_npv, f"gui NPV {npv!r} differs from the direct call's {direct_npv!r}")
+    check(counts == {"backward_update": n_steps - 1, "forward_sim": NUM_SPANS,
+                     "path_sim": PATH_SETS}, f"gui launches {counts}")
+    check(cancelled.status == CalcStatus.CANCELLED and raised,
+          f"cancelled gui run: status {cancelled.status}, raised {raised}")
+    return counts, variants
+
+
+NOTEBOOKS = ("torch_storage_valuation_walkthrough.ipynb", "torch_multi_factor_gui.ipynb",
+             "torch_creating_storage_instances.ipynb")
+
+
+def notebook_cells(path, device):
+    """The code cells of the notebook at ``path`` to run: the ``parameters``
+    cell as ``DEVICE = device``, and no cell tagged ``needs-<module>`` for a
+    module that does not import here.  Returns (sources, left-out tags)."""
+    import importlib.util
+
+    with open(path) as f:
+        nb = json.load(f)
+    sources, left_out = [], []
+    for cell in nb["cells"]:
+        if cell["cell_type"] != "code":
+            continue
+        tags = cell.get("metadata", {}).get("tags", [])
+        missing = [t for t in tags if t.startswith("needs-")
+                   and importlib.util.find_spec(t[len("needs-"):]) is None]
+        if missing:
+            left_out += missing
+            continue
+        source = "".join(cell["source"])
+        sources.append(f"DEVICE = {device!r}" if "parameters" in tags else source)
+    return sources, left_out
+
+
+def run_notebook(path, device):
+    """The notebook's code cells in order in one namespace, from the
+    notebook's folder (as a kernel runs them); returns (namespace, what they
+    printed, left-out tags)."""
+    import contextlib
+    import io
+
+    sources, left_out = notebook_cells(path, device)
+    folder = os.path.dirname(os.path.abspath(path))
+    namespace, out, cwd = {"__name__": "__main__"}, io.StringIO(), os.getcwd()
+    sys.path.insert(0, folder)
+    os.chdir(folder)
+    try:
+        with contextlib.redirect_stdout(out):
+            for source in sources:
+                exec(compile(source, path, "exec"), namespace)
+    finally:
+        os.chdir(cwd)
+        sys.path.remove(folder)
+    return namespace, out.getvalue(), left_out
+
+
+def phase_notebooks():
+    """Each ``examples/torch_*.ipynb`` (written by
+    ``examples/_make_torch_notebooks.py``) run in one namespace with
+    ``DEVICE = "cuda"``, read with ``json``; the cells that need a module
+    missing here (ipywidgets, matplotlib) are left out.  Then each kernel
+    against its plain version on a launch of the first valuation (K1
+    mid-horizon, K2's first, K3's first path set).  Returns the launches of
+    all three and the variants ``notebooks``."""
+    import math
+    import storage_tpu_torch as tt
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+    tt.reset_launch_counts()
+    npvs = {}
+    rec = _dtype_recording(NOTEBOOK_CAPTURE_LAUNCH, dtypes=("float32",))
+    for name in NOTEBOOKS:
+        t0 = time.perf_counter()
+        with rec:
+            namespace, printed, left_out = run_notebook(os.path.join(folder, name), "cuda")
+        wall = time.perf_counter() - t0
+        npv_lines = [line.strip() for line in printed.splitlines()
+                     if "NPV" in line or line.startswith(("Trinomial", "LSMC"))]
+        print(f"[notebooks] {name}: {wall:.3f} s, left out {left_out or 'nothing'}; {npv_lines}")
+        results = namespace.get("results")
+        if results is not None:
+            npvs[name] = results.npv
+            check(math.isfinite(results.npv) and results.deltas.notna().all(),
+                  f"{name}: NPV or deltas not finite")
+    counts = tt.launch_counts()
+    check(sorted(npvs) == sorted(NOTEBOOKS[:2]), f"the notebooks valued {sorted(npvs)}")
+    check(all(c > 0 for c in counts.values()), f"notebook launches {counts}")
+    return counts, _hold_recorded("notebooks", rec, counts, min_tiles_per_block=1)
+
+
 def main(argv) -> int:
     all_cards = "--all-cards" in argv
     started = time.perf_counter()
@@ -2495,6 +2849,12 @@ def main(argv) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_examples()
+        precision_counts, precision_variants = phase_precision()
+        gc.collect()
+        torch.cuda.empty_cache()
+        gui_counts, gui_variants = phase_gui()
+        gc.collect()
+        notebook_counts, notebook_variants = phase_notebooks()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2505,7 +2865,8 @@ def main(argv) -> int:
              "stream_main": stream_counts, "hourly": hourly_counts, "reprice": reprice_counts,
              "spot_sim": spot_counts, "f64_main": f64_counts, "mesh": mesh_counts,
              "mesh_f64": mesh64_counts, "tree": tree_counts, "excel": excel_counts,
-             "accuracy": accuracy_counts}
+             "accuracy": accuracy_counts, "precision": precision_counts, "gui": gui_counts,
+             "notebooks": notebook_counts}
     # The float64 variants' launches on f64_main, by mode: K2 once per span,
     # the tail one of them; K3 one checkpoint pass and then spans per path set.
     f64_launches = {
@@ -2530,6 +2891,13 @@ def main(argv) -> int:
                            else 0)
                 for name, m in measured.items()}
 
+    # The precision study's float64 launches: K3's one-launch path sets go to
+    # the "f64" variant (its first launches on a path), with the full-horizon
+    # comparison's numbers.
+    k3_precision = precision_variants["K3"]
+    k3_f64["f64"].update(launches_precision=k3_precision["launches_precision"],
+                         **{f"{k}_precision": v for k, v in k3_precision["precision"].items()
+                            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms")})
     kernels = [
         dict(name="backward_update", route="cuda",
              source="storage_tpu_torch/ops/csrc/backward_update.cu",
@@ -2539,21 +2907,25 @@ def main(argv) -> int:
              variants={"D5": k1_d5, f"G{LARGE_G}_D{3 + 2 * LARGE_G_EXTRA}": k1_large,
                        **k1_hourly, **f64_variants("K1", k1_f64),
                        **mesh_variants("backward_update", k1_mesh),
-                       **accuracy_variants["K1"]}),
+                       **accuracy_variants["K1"], **precision_variants["K1"],
+                       **gui_variants["K1"], **notebook_variants["K1"]}),
         dict(name="forward_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/forward_sim.cu",
              replaces="storage_tpu/ops/pallas_forward.py:96",
              launches=counts["forward_sim"], **k2,
              launches_by_path={p: c["forward_sim"] for p, c in paths.items()},
              variants={**k2_variants, **k2_hourly, **f64_variants("K2", k2_f64),
-                       **mesh_variants("forward_sim", k2_mesh), **accuracy_variants["K2"]}),
+                       **mesh_variants("forward_sim", k2_mesh), **accuracy_variants["K2"],
+                       **precision_variants["K2"], **gui_variants["K2"],
+                       **notebook_variants["K2"]}),
         dict(name="path_sim", route="cuda",
              source="storage_tpu_torch/ops/csrc/path_sim.cu",
              replaces="storage_tpu/models/simulation.py:264 (XLA code, no Pallas kernel)",
              launches=counts["path_sim"], **k3,
              launches_by_path={p: c["path_sim"] for p, c in paths.items()},
              variants={**k3_variants, **f64_variants("K3", k3_f64),
-                       **mesh_variants("path_sim", k3_mesh), **accuracy_variants["K3"]}),
+                       **mesh_variants("path_sim", k3_mesh), **accuracy_variants["K3"],
+                       **gui_variants["K3"], **notebook_variants["K3"]}),
     ]
     print(f"[wall] chip_smoke {time.perf_counter() - started:.3f} s, the build included")
     print(f"[card] {card}")

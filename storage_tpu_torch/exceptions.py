@@ -5,14 +5,6 @@ class StorageError(Exception):
     """Base class for storage_tpu_torch errors."""
 
 
-def not_ported(what: str, roadmap_item: str) -> NotImplementedError:
-    """The error for an option of the JAX package this port does not run yet,
-    naming the ROADMAP item that ports it."""
-    return NotImplementedError(
-        f"{what} is not ported to storage_tpu_torch yet (ROADMAP {roadmap_item})."
-    )
-
-
 class InventoryConstraintsCannotBeFulfilledError(StorageError):
     """Inventory constraints admit no feasible path.
 

@@ -155,7 +155,9 @@ PORT_SOURCES = sorted(p for p in (REPO / "storage_tpu_torch").rglob("*.py")
 
 @pytest.mark.parametrize("path", PORT_SOURCES + [REPO / "chip_smoke.py",
                                                  REPO / "tools" / "kernel_turns.py",
-                                                 REPO / "tools" / "torch_accuracy_study.py"]
+                                                 REPO / "tools" / "torch_accuracy_study.py",
+                                                 REPO / "tools" / "torch_precision_study.py",
+                                                 REPO / "examples" / "_make_torch_notebooks.py"]
                          + sorted((REPO / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
