@@ -1,0 +1,6 @@
+"""``forward_s.value``, read in the panels cell, where no end-to-end time is held."""
+from portbench.trace import reader
+
+
+def read(t):
+    return reader("forward_s.value")(t)

@@ -1,0 +1,6 @@
+"""``path_sim_s.value``, read in the panels cell, where no end-to-end time is held."""
+from portbench.trace import reader
+
+
+def read(t):
+    return reader("path_sim_s.value")(t)
