@@ -30,6 +30,7 @@ from ..ops.ratchets import interp_rates_host
 from ..storage import CmdtyStorage
 from ..utils.discount import DiscountFn
 from ..utils.frequencies import PeriodLike, normalize_freq, to_period
+from ..utils.profiling import host_wait
 from .common import step_economics
 
 PROFILE_COLUMNS = [
@@ -70,7 +71,7 @@ def _backward_values(ctx: ValuationContext, terminal_values: np.ndarray, extra_d
     G = ctx.num_grid_points
 
     def t(a):
-        return torch.tensor(np.asarray(a), dtype=dtype).to(device)
+        return host_wait(torch.tensor(np.asarray(a), dtype=dtype).to, device)
 
     grids, lo, hi, pillars = (t(ctx.grids), t(ctx.inv_space.min_inventory),
                               t(ctx.inv_space.max_inventory), t(ctx.pillars))
@@ -105,7 +106,7 @@ def _backward_values(ctx: ValuationContext, terminal_values: np.ndarray, extra_d
             else:
                 cont = v_next[j[i]] * w_lo[i] + v_next[j_hi[i]] * w[i]
             values[k] = (immediate[i] + cont).max(dim=-1).values  # [G]
-    return values.cpu().numpy()
+    return host_wait(values.cpu).numpy()
 
 
 def _host_cubic_moments(y: np.ndarray, h: float) -> np.ndarray:

@@ -66,6 +66,7 @@ from ..ops.regression import (
     BasisSpec, design_matrix, fit_continuation_shards, spot_from_factors, standardize_shards,
 )
 from ..parallel.mesh import replicate, sims_mean, sum_shards
+from ..utils.profiling import Stopwatches, active, host_wait
 from .common import step_economics
 
 NUM_TRIGGER_VOLUMES = 10  # reference numTriggerPriceVolumes (LsmcStorageValuation.cs:367)
@@ -129,7 +130,7 @@ class LsmcDeviceInputs(NamedTuple):
 
 def device_inputs(ctx: ValuationContext, device, dtype=torch.float32) -> LsmcDeviceInputs:
     def t(a):
-        return torch.tensor(np.asarray(a), dtype=dtype).to(device).contiguous()
+        return host_wait(torch.tensor(np.asarray(a), dtype=dtype).to, device).contiguous()
 
     return LsmcDeviceInputs(
         grids=t(ctx.grids),
@@ -402,13 +403,17 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
     if m:
         spans = _refine_spans(m, num_chunks, reg.spans)
         parts = []
-        for i, (a, b) in enumerate(reversed(spans)):
-            geometry = _decision_geometry(dev, first + a, b - a, interp_kind, G, extra_decisions)
-            v, *policy = backward_scan(
-                v, reg.get(a, b), sim_vols[a:b], sim_drift[a:b], geometry, spec)
-            parts.insert(0, policy)
-            if after_span is not None:
-                after_span(BACKWARD_PCNT_TIME * (i + 1) / len(spans))
+        sw = active()
+        sw.count("decision_steps", m)
+        with sw.span("BackwardScan"):
+            for i, (a, b) in enumerate(reversed(spans)):
+                geometry = _decision_geometry(dev, first + a, b - a, interp_kind, G,
+                                              extra_decisions)
+                v, *policy = backward_scan(
+                    v, reg.get(a, b), sim_vols[a:b], sim_drift[a:b], geometry, spec)
+                parts.insert(0, policy)
+                if after_span is not None:
+                    after_span(BACKWARD_PCNT_TIME * (i + 1) / len(spans))
         coeffs, mus, sds, vbars = (torch.cat(x, dim=0) for x in zip(*parts))
     else:
         B = spec.num_basis
@@ -599,53 +604,58 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
     panels = [x.new_empty((n + 1, 6, w if collect_panels else 0))
               for x, w in zip(rep(sim_vols), val.widths)]
 
-    if val_first:
-        inv0, pv0, outputs0 = _step0_single_sim(cont_mean0, dev, dfd[0], interp_kind, G,
-                                                 extra_decisions)
-        if collect_panels:
-            for p, row in zip(panels, rep(outputs0[0][0, :, None])):
-                p[0] = row  # the single sim's fields, for every sim
-    else:
-        inv0, pv0, outputs0 = dev.inventory, dev.inventory.new_zeros(()), None
+    sw = active()
+    with sw.span("ForwardKernels"):
+        if val_first:
+            inv0, pv0, outputs0 = _step0_single_sim(cont_mean0, dev, dfd[0], interp_kind, G,
+                                                     extra_decisions)
+            if collect_panels:
+                for p, row in zip(panels, rep(outputs0[0][0, :, None])):
+                    p[0] = row  # the single sim's fields, for every sim
+        else:
+            inv0, pv0, outputs0 = dev.inventory, dev.inventory.new_zeros(()), None
 
-    tables = torch.cat([coeffs, vbars[:, None, :]], dim=1).contiguous()  # [m, B+1, G]
-    mus, sds = mus.contiguous(), sds.contiguous()
-    pillars = dev.pillars[first:n].contiguous()
-    scalars = pack_scalars(
-        dev.space_lo[first + 1:n + 1], dev.space_hi[first + 1:n + 1], dev.loss[first:n],
-        dev.inject_cost[first:n], dev.withdraw_cost[first:n], dev.cons_inject[first:n],
-        dev.cons_withdraw[first:n], dev.inv_cost_rate[first:n], dev.df_settle[first:n],
-        dev.df_start[first:n], sim_drift[:m], sim_vols[:m],
-    )
-    per_device = list(zip(rep(tables), rep(mus), rep(sds), rep(pillars), rep(scalars)))
-    spans = _refine_spans(m, num_chunks, val.spans) if m else [(0, 0)]
-    inv = [x.reshape(1).expand(w).contiguous() for x, w in zip(rep(inv0), val.widths)]
-    pv_total = [torch.zeros_like(x) for x in inv]
-    sums_parts, xsums_parts = [], []
-    for i, (a, b) in enumerate(spans):
-        outs = [forward_sim(
-            f, iv, tb[a:b], mu[a:b], sd[a:b], pl[a:b], sc[a:b], spec=spec,
-            interp_kind=interp_kind, num_grid=G, extra_decisions=extra_decisions,
-            panels=p[first + a:first + b] if collect_panels else None,
-        ) for f, iv, (tb, mu, sd, pl, sc), p in zip(val.get(a, b), inv, per_device, panels)]
-        pv_total = [t + o[3] for t, o in zip(pv_total, outs)]
-        inv = [o[2] for o in outs]
-        sums_parts.append(sum_shards([o[0] for o in outs]))
-        xsums_parts.append(sum_shards([o[1] for o in outs]))
-        if after_span is not None:
-            after_span(BACKWARD_PCNT_TIME + (1.0 - BACKWARD_PCNT_TIME) * (i + 1) / len(spans))
-    pv_by_sim = [t + p for t, p in zip(pv_total, rep(pv0))]
-    _check_forward_health(pv_by_sim, inv, backward_npv)
-    stacked = _stacked_outputs(torch.cat(sums_parts), torch.cat(xsums_parts), tables, dev, dfd,
-                               first, n, S, interp_kind, G, extra_decisions)
-    if val_first:
-        stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(outputs0, stacked))
-    end_spots = [spot_from_factors(last, vols[-1], drift[-1]) for last, vols, drift in
-                 zip(val.last(), rep(sim_vols), rep(sim_drift))]
-    arrays = _assemble_arrays(stacked, inv, pv_by_sim, end_spots, terminal_fn, backward_npv,
-                              panels)
-    if not val.sharded:
-        arrays = arrays._replace(pv_by_sim=arrays.pv_by_sim[0], panels=arrays.panels[0])
+        tables = torch.cat([coeffs, vbars[:, None, :]], dim=1).contiguous()  # [m, B+1, G]
+        mus, sds = mus.contiguous(), sds.contiguous()
+        pillars = dev.pillars[first:n].contiguous()
+        scalars = pack_scalars(
+            dev.space_lo[first + 1:n + 1], dev.space_hi[first + 1:n + 1], dev.loss[first:n],
+            dev.inject_cost[first:n], dev.withdraw_cost[first:n], dev.cons_inject[first:n],
+            dev.cons_withdraw[first:n], dev.inv_cost_rate[first:n], dev.df_settle[first:n],
+            dev.df_start[first:n], sim_drift[:m], sim_vols[:m],
+        )
+        per_device = list(zip(rep(tables), rep(mus), rep(sds), rep(pillars), rep(scalars)))
+        spans = _refine_spans(m, num_chunks, val.spans) if m else [(0, 0)]
+        inv = [x.reshape(1).expand(w).contiguous() for x, w in zip(rep(inv0), val.widths)]
+        pv_total = [torch.zeros_like(x) for x in inv]
+        sums_parts, xsums_parts = [], []
+        for i, (a, b) in enumerate(spans):
+            outs = [forward_sim(
+                f, iv, tb[a:b], mu[a:b], sd[a:b], pl[a:b], sc[a:b], spec=spec,
+                interp_kind=interp_kind, num_grid=G, extra_decisions=extra_decisions,
+                panels=p[first + a:first + b] if collect_panels else None,
+            ) for f, iv, (tb, mu, sd, pl, sc), p in zip(val.get(a, b), inv, per_device, panels)]
+            pv_total = [t + o[3] for t, o in zip(pv_total, outs)]
+            inv = [o[2] for o in outs]
+            sums_parts.append(sum_shards([o[0] for o in outs]))
+            xsums_parts.append(sum_shards([o[1] for o in outs]))
+            if after_span is not None:
+                after_span(BACKWARD_PCNT_TIME + (1.0 - BACKWARD_PCNT_TIME) * (i + 1) / len(spans))
+        pv_by_sim = [t + p for t, p in zip(pv_total, rep(pv0))]
+    with sw.span("ForwardHealth"):
+        _check_forward_health(pv_by_sim, inv, backward_npv)
+    with sw.span("StackedOutputs"):
+        stacked = _stacked_outputs(torch.cat(sums_parts), torch.cat(xsums_parts), tables, dev,
+                                   dfd, first, n, S, interp_kind, G, extra_decisions)
+        if val_first:
+            stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(outputs0, stacked))
+    with sw.span("AssembleArrays"):
+        end_spots = [spot_from_factors(last, vols[-1], drift[-1]) for last, vols, drift in
+                     zip(val.last(), rep(sim_vols), rep(sim_drift))]
+        arrays = _assemble_arrays(stacked, inv, pv_by_sim, end_spots, terminal_fn, backward_npv,
+                                  panels)
+        if not val.sharded:
+            arrays = arrays._replace(pv_by_sim=arrays.pv_by_sim[0], panels=arrays.panels[0])
     return arrays
 
 
@@ -702,12 +712,12 @@ def _check_backward_health(coeffs, vbars, fwd=None) -> None:
     (``vbars`` is never NaN-sanitised upstream, so a blow-up reaches it).
     One device->host fetch."""
     fwd_zero = fwd is not None and not np.any(np.asarray(fwd))
-    finite_c, finite_v, nonzero_v = torch.stack([
+    finite_c, finite_v, nonzero_v = host_wait(torch.stack([
         torch.isfinite(coeffs).all(),
         torch.isfinite(vbars).all(),
         (vbars != 0.0).any() if vbars.numel() else torch.ones((), dtype=torch.bool,
                                                               device=vbars.device),
-    ]).tolist()
+    ]).tolist)
     if not (finite_c and finite_v):
         raise StorageError(
             "Backward induction produced non-finite values "
@@ -733,9 +743,9 @@ def _check_forward_health(pv, inv_final, backward_npv) -> None:
     flags = torch.stack([torch.stack([
         torch.isfinite(p).all(), (p != 0.0).any(), (i != 0.0).any(),
     ]).to(backward_npv.device) for p, i in zip(pv, inv_final)])
-    finite_p, nonzero_p, inv_nonzero, back_zero = torch.stack([
+    finite_p, nonzero_p, inv_nonzero, back_zero = host_wait(torch.stack([
         flags[:, 0].all(), flags[:, 1].any(), flags[:, 2].any(), backward_npv.abs() < 1e-9,
-    ]).tolist()
+    ]).tolist)
     if not finite_p:
         raise StorageError("Forward simulation produced non-finite per-simulation PVs.")
     if sum(p.numel() for p in pv) and not nonzero_p and not inv_nonzero and not back_zero:
@@ -754,22 +764,24 @@ def _chunk_bounds(n: int, num_chunks: int) -> List[Tuple[int, int]]:
 
 
 def _span_hook(devices, on_progress_update, cancelled) -> Callable[[float], None]:
-    """The host's turn after each span: wait for the span's kernels on every
-    CUDA device of ``devices`` (one event each, recorded after every shard's
-    launches; so that progress means work done and a cancel lands at once),
-    check the cancellation hook, report progress."""
+    """The host's turn after each span (a ``Progress`` span): wait for the
+    span's kernels on every CUDA device of ``devices`` (one event each,
+    recorded after every shard's launches; so that progress means work done
+    and a cancel lands at once), check the cancellation hook, report
+    progress."""
     cuda_devices = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
 
     def after_span(frac: float) -> None:
-        done = [torch.cuda.Event() for _ in cuda_devices]
-        for event, device in zip(done, cuda_devices):
-            event.record(torch.cuda.current_stream(device))
-        for event in done:
-            event.synchronize()
-        if cancelled is not None and cancelled():
-            raise ValuationCancelledError("Storage valuation was cancelled.")
-        if on_progress_update is not None:
-            on_progress_update(frac)
+        with active().span("Progress"):
+            done = [torch.cuda.Event() for _ in cuda_devices]
+            for event, device in zip(done, cuda_devices):
+                event.record(torch.cuda.current_stream(device))
+            for event in done:
+                host_wait(event.synchronize)
+            if cancelled is not None and cancelled():
+                raise ValuationCancelledError("Storage valuation was cancelled.")
+            if on_progress_update is not None:
+                on_progress_update(frac)
 
     return after_span
 
@@ -789,7 +801,10 @@ def _on_device(x, device, dtype=torch.float32):
     shards (each on its shard's device) as it is."""
     if isinstance(x, (StreamingFactorSource, list, tuple)):
         return x
-    return torch.as_tensor(x, dtype=dtype).to(device).contiguous()
+    t = torch.as_tensor(x, dtype=dtype)
+    if isinstance(x, torch.Tensor) and x.device.type == device.type:
+        return t.to(device).contiguous()
+    return host_wait(t.to, device).contiguous()  # from host memory
 
 
 def run_lsmc(
@@ -828,9 +843,11 @@ def run_lsmc(
     """
     devices = [torch.device(device)] if mesh is None else list(mesh.devices)
     device = devices[0]
-    dev = device_inputs(ctx, device, dtype)
+    with active().span("DeviceInputs"):
+        dev = device_inputs(ctx, device, dtype)
+        sim_vols = _on_device(sim_vols, device, dtype)
+        sim_drift = _on_device(sim_drift, device, dtype)
     statics = _program_statics(ctx, spec, extra_decisions)
-    sim_vols, sim_drift = _on_device(sim_vols, device, dtype), _on_device(sim_drift, device, dtype)
     chunked = on_progress_update is not None or cancelled is not None
     num_chunks = NUM_PROGRESS_CHUNKS if chunked else 1
     after_span = _span_hook(devices, on_progress_update, cancelled) if chunked else None
@@ -854,7 +871,8 @@ def run_lsmc(
         backward_npv, discount_deltas=discount_deltas, collect_panels=collect_panels,
         num_chunks=num_chunks, after_span=after_span, **statics)
     if stopwatches is not None:
-        stopwatches.synchronize()
+        if stopwatches.sync:
+            stopwatches.synchronize()
         stopwatches.stop("ForwardSimulation")
     if on_progress_update is not None:
         on_progress_update(1.0)
@@ -917,14 +935,25 @@ def fit_policy(
     extra_decisions: int = 0,
     device="cuda",
     dtype=torch.float32,
+    profile_sink: Optional[Callable[[Stopwatches], None]] = None,
 ) -> LsmcPolicy:
     """Run only the backward induction, in ``dtype``, and capture the fitted
-    policy."""
+    policy.  ``profile_sink`` is handed the call's
+    :class:`~storage_tpu_torch.utils.profiling.Stopwatches` (phases, spans,
+    counters) when it returns; it adds no device sync."""
     device = torch.device(device)
-    backward_npv, cont_mean0, coeffs, mus, sds, vbars = _backward_program(
-        _on_device(reg_factors, device, dtype), _on_device(sim_vols, device, dtype),
-        _on_device(sim_drift, device, dtype), device_inputs(ctx, device, dtype),
-        **_program_statics(ctx, spec, extra_decisions))
+    sw = Stopwatches(device, record=profile_sink is not None)
+    with sw.activate(), sw.time("All"):
+        with sw.span("DeviceInputs"):
+            reg_factors, sim_vols, sim_drift = (
+                _on_device(x, device, dtype) for x in (reg_factors, sim_vols, sim_drift))
+            dev = device_inputs(ctx, device, dtype)
+        with sw.time("BackwardInduction"):
+            backward_npv, cont_mean0, coeffs, mus, sds, vbars = _backward_program(
+                reg_factors, sim_vols, sim_drift, dev,
+                **_program_statics(ctx, spec, extra_decisions))
+    if profile_sink is not None:
+        profile_sink(sw)
     return LsmcPolicy(coeffs, mus, sds, vbars, cont_mean0, backward_npv)
 
 
@@ -940,14 +969,25 @@ def reprice(
     collect_panels: bool = False,
     device="cuda",
     dtype=torch.float32,
+    profile_sink: Optional[Callable[[Stopwatches], None]] = None,
 ) -> LsmcArrays:
     """Forward-simulate a previously fitted policy on a fresh path set, in
-    ``dtype`` (the policy is cast to it)."""
+    ``dtype`` (the policy is cast to it).  ``profile_sink`` as in
+    :func:`fit_policy`."""
     device = torch.device(device)
-    policy = LsmcPolicy(*(t.to(device=device, dtype=dtype) for t in policy))
-    return _forward_program(
-        _on_device(val_factors, device, dtype), _on_device(sim_vols, device, dtype),
-        _on_device(sim_drift, device, dtype),
-        policy.cont_mean0, policy.coeffs, policy.mus, policy.sds, policy.vbars,
-        device_inputs(ctx, device, dtype), policy.backward_npv, discount_deltas=discount_deltas,
-        collect_panels=collect_panels, **_program_statics(ctx, spec, extra_decisions))
+    sw = Stopwatches(device, record=profile_sink is not None)
+    with sw.activate(), sw.time("All"):
+        with sw.span("DeviceInputs"):
+            policy = LsmcPolicy(*(_on_device(t, device, dtype) for t in policy))
+            val_factors, sim_vols, sim_drift = (
+                _on_device(x, device, dtype) for x in (val_factors, sim_vols, sim_drift))
+            dev = device_inputs(ctx, device, dtype)
+        with sw.time("ForwardSimulation"):
+            arrays = _forward_program(
+                val_factors, sim_vols, sim_drift,
+                policy.cont_mean0, policy.coeffs, policy.mus, policy.sds, policy.vbars,
+                dev, policy.backward_npv, discount_deltas=discount_deltas,
+                collect_panels=collect_panels, **_program_statics(ctx, spec, extra_decisions))
+    if profile_sink is not None:
+        profile_sink(sw)
+    return arrays

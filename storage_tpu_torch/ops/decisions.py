@@ -24,6 +24,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import host_wait
+
 
 def clipped_decision_bounds(
     min_rate,
@@ -91,6 +93,7 @@ def bang_bang_decisions_fixed(
     next_step_min_inventory,
     next_step_max_inventory,
     extra_decisions: int = 0,
+    weights=None,
 ):
     """Fixed-width decision set of size ``2*extra_decisions + 3``.
 
@@ -100,9 +103,12 @@ def bang_bang_decisions_fixed(
     ``extra + 2``-wide set ``[withdraw, extras..., inject]`` is padded to full
     width by repeating the inject decision — duplicates are argmax-neutral.
 
-    All inputs broadcast; the decision axis is appended last.
+    All inputs broadcast; the decision axis is appended last.  ``weights``:
+    the rows of :func:`decision_weights` already on the inputs' device in
+    their dtype (a caller that builds many sets uploads them once); by
+    default they are uploaded here.
     """
-    weights = decision_weights(extra_decisions)
+    rows = decision_weights(extra_decisions)
     yw, yi = clipped_decision_bounds(
         min_rate, max_rate, inventory, inventory_loss,
         next_step_min_inventory, next_step_max_inventory,
@@ -112,8 +118,9 @@ def bang_bang_decisions_fixed(
 
     # Per-slot weights, the same float64 host constants as the reference
     # build, applied in the working dtype.
-    zero_w, zero_i, nspan_w, nspan_i = (
-        torch.as_tensor(a, dtype=yw.dtype, device=yw.device) for a in weights)
+    if weights is None:
+        weights = [host_wait(torch.as_tensor(a, dtype=yw.dtype).to, yw.device) for a in rows]
+    zero_w, zero_i, nspan_w, nspan_i = weights
     yw_e = yw[..., None]
     yi_e = yi[..., None]
     zero_set = yw_e * zero_w + yi_e * zero_i

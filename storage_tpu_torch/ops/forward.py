@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import host_wait
 from . import count_launch
 from .decisions import bang_bang_decisions_fixed, decision_weights
 from .interp import fractional_index
@@ -61,6 +62,9 @@ def forward_sim_reference(
     sims.  Returns ``(sums [n, 7], xsums [n, B+1], inv_final [S], pv_final [S])``."""
     n, num_factors, S = factors.shape
     B = spec.num_basis
+    # The slot weights, uploaded once, as the kernel's launcher does.
+    weights = host_wait(torch.tensor(decision_weights(extra_decisions), dtype=inv0.dtype).to,
+                        inv0.device)
     inv = inv0.clone()
     pv = torch.zeros_like(inv)
     sums, xsums = [], []
@@ -75,7 +79,7 @@ def forward_sim_reference(
         lo, hi = sc[SC_LO], sc[SC_HI]
         loss_amt = sc[SC_LOSS] * inv
         decisions = bang_bang_decisions_fixed(min_rate, max_rate, inv, loss_amt, lo, hi,
-                                              extra_decisions)  # [S, D]
+                                              extra_decisions, weights)  # [S, D]
         tbl = tables[k].T  # [G, B+1]
         best = None
         for d in decisions.unbind(dim=1):
@@ -166,7 +170,7 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
         check_operand(name, t, shape, dtype)
     lib = kernels()
     dev = factors.device
-    weights = torch.tensor(decision_weights(extra_decisions), dtype=dtype, device=dev)
+    weights = host_wait(torch.tensor(decision_weights(extra_decisions), dtype=dtype).to, dev)
     D = weights.shape[1]
     pitch = lib.forward_sim_f64_row_pitch(B) if f64 else lib.forward_sim_row_pitch(B)
     records = pack_records(tables, mus, sds, pillars, scalars, pitch)

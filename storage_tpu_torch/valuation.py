@@ -49,7 +49,7 @@ from .storage import CmdtyStorage
 from .types import TriggerPricePoint, TriggerPriceProfile
 from .utils.basis import THREE_FACTOR_SEASONAL_ALIASES, BasisFunctionsType, as_monomials
 from .utils.frequencies import PeriodLike, normalize_freq, to_period
-from .utils.profiling import Stopwatches
+from .utils.profiling import Stopwatches, host_wait
 
 logger: logging.Logger = logging.getLogger("storage_tpu_torch.multi_factor")
 
@@ -228,9 +228,10 @@ def _multi_factor_calc(
     device = torch.device(device)
     freq = normalize_freq(cmdty_storage.freq)
     val_period = to_period(val_date, freq)
-    stopwatches = Stopwatches(device)
-    # Genuine phase attribution needs device syncs at phase boundaries; only
-    # pay for them when the caller asked for the profile.
+    # A caller who asks for the profile gets the call's spans and counters,
+    # and genuine phase attribution, which needs device syncs at phase
+    # boundaries; only then are they paid for.
+    stopwatches = Stopwatches(device, record=profile_sink is not None)
     stopwatches.sync = profile_sink is not None
     stopwatches.start("All")
 
@@ -264,106 +265,112 @@ def _multi_factor_calc(
             on_progress_update(1.0)
         return _empty_results(freq, npv=npv, intrinsic_npv=npv)
 
-    ctx = build_valuation_context(
-        cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
-        num_inventory_grid_points, numerical_tolerance,
-    )
+    with stopwatches.activate():
+        with stopwatches.span("Compile"):
+            ctx = build_valuation_context(
+                cmdty_storage, val_date, inventory, fwd_curve, interest_rates, settlement_rule,
+                num_inventory_grid_points, numerical_tolerance,
+            )
 
-    # Intrinsic calc first (reference multi_factor.py:404-410), sharing the
-    # compiled context with the LSMC run below.
-    logger.info("Calculating intrinsic value.")
-    intrinsic = intrinsic_value_with_ctx(ctx, device=device, dtype=dtype)
-    logger.info("Calculation of intrinsic value complete.")
-    first_sim_step = 1 if ctx.val_date_is_first_step else 0
-    sim_periods = list(ctx.periods[first_sim_step:])
+        # Intrinsic calc first (reference multi_factor.py:404-410), sharing the
+        # compiled context with the LSMC run below.
+        logger.info("Calculating intrinsic value.")
+        with stopwatches.span("Intrinsic"):
+            intrinsic = intrinsic_value_with_ctx(ctx, device=device, dtype=dtype)
+        logger.info("Calculation of intrinsic value complete.")
+        first_sim_step = 1 if ctx.val_date_is_first_step else 0
+        sim_periods = list(ctx.periods[first_sim_step:])
 
-    spec = basis_spec(monomials, num_factors=len(factors))
+        spec = basis_spec(monomials, num_factors=len(factors))
 
-    # Path simulation: regression set + independent valuation set, keyed as
-    # in the JAX package so that the same seed draws the same paths.
-    coeffs = build_sim_coefficients(
-        factors, factor_corrs, val_period, fwd_curve, sim_periods
-    )
-    if seed is None:
-        seed = int(np.random.SeedSequence().entropy % (2**62))
-    reg_key = prng_key(int(seed))
-    val_key = fold_in(reg_key, 1) if fwd_sim_seed is None else prng_key(int(fwd_sim_seed))
-
-    # Factories: the engine simulates each path set lazily so the regression
-    # set can be freed before the valuation set allocates.  With panels, each
-    # set's spot panel [m+1, S] is kept (on the device) as it is simulated.
-    sims_cache = {}
-    sim_vols = torch.as_tensor(coeffs.vols, dtype=dtype).to(device)
-    sim_drift = torch.as_tensor(coeffs.log_fwd_drift, dtype=dtype).to(device)
-
-    # Long-horizon x production-path configs (e.g. multi-year hourly) cannot
-    # materialise the full [m+1, F, S] factor tensor on the device; past this
-    # budget the engine streams paths span by span from checkpointed OU
-    # states (the same draws bit for bit, see StreamingFactorSource).  Per-sim
-    # panels are incompatible with streaming (they are O(n x S) themselves).
-    # The budget counts bytes of the run's dtype, as the JAX package does.
-    per_step_bytes = len(factors) * num_sims * torch.empty((), dtype=dtype).element_size()
-    path_bytes = len(sim_periods) * per_step_bytes
-    max_path_bytes = int(float(os.environ.get(MAX_PATH_BYTES_ENV, DEFAULT_MAX_PATH_BYTES)))
-    streaming = path_bytes > max_path_bytes
-    if streaming and return_sim_panels:
-        raise ValueError(
-            f"return_sim_panels=True requires materialising O(n_steps x "
-            f"num_sims) panels, but this configuration's factor paths alone "
-            f"({path_bytes / 1e9:.1f} GB) exceed the device budget "
-            f"({max_path_bytes / 1e9:.1f} GB, {MAX_PATH_BYTES_ENV}); "
-            "pass return_sim_panels=False."
+        # Path simulation: regression set + independent valuation set, keyed as
+        # in the JAX package so that the same seed draws the same paths.
+        coeffs = build_sim_coefficients(
+            factors, factor_corrs, val_period, fwd_curve, sim_periods
         )
-    if streaming:
-        every = _stream_span_length(max_path_bytes, per_step_bytes)
+        if seed is None:
+            seed = int(np.random.SeedSequence().entropy % (2**62))
+        reg_key = prng_key(int(seed))
+        val_key = fold_in(reg_key, 1) if fwd_sim_seed is None else prng_key(int(fwd_sim_seed))
 
-        # The simulation stopwatches time the upfront CHECKPOINT pass only:
-        # per-span regeneration is interleaved with consumption, so that part
-        # of the simulation cost folds into BackwardInduction /
-        # ForwardSimulation (unlike the materialised path's stopwatches).
-        def simulate(key, phase, name):
-            logger.info("Streaming %s path simulation (span=%d).", name, every)
-            with stopwatches.time(phase):
-                return StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
-                                             device=device, dtype=dtype, mesh=mesh).prepare()
-    else:
-        def simulate(key, phase, name):
-            with stopwatches.time(phase):
-                f = simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
-                                          device=device, dtype=dtype, mesh=mesh)
-                if stopwatches.sync:
-                    stopwatches.synchronize()
-            if return_sim_panels:
-                sims_cache[name] = _spot_panels(f, sim_vols, sim_drift)
-            return f
+        # Factories: the engine simulates each path set lazily so the regression
+        # set can be freed before the valuation set allocates.  With panels, each
+        # set's spot panel [m+1, S] is kept (on the device) as it is simulated.
+        sims_cache = {}
+        sim_vols = host_wait(torch.as_tensor(coeffs.vols, dtype=dtype).to, device)
+        sim_drift = host_wait(torch.as_tensor(coeffs.log_fwd_drift, dtype=dtype).to, device)
 
-    logger.info("Calculating LSMC value.")
-    arrays = run_lsmc(
-        ctx,
-        lambda: simulate(reg_key, "RegressionPriceSimulation", "reg"),
-        lambda: simulate(val_key, "ValuationPriceSimulation", "val"),
-        sim_vols, sim_drift, spec,
-        discount_deltas=discount_deltas,
-        extra_decisions=int(extra_decisions or 0),
-        device=device,
-        on_progress_update=on_progress_update,
-        cancelled=cancelled,
-        collect_panels=return_sim_panels,
-        stopwatches=stopwatches,
-        dtype=dtype,
-        mesh=mesh,
-    )
-    logger.info("Calculation of LSMC value complete.")
+        # Long-horizon x production-path configs (e.g. multi-year hourly) cannot
+        # materialise the full [m+1, F, S] factor tensor on the device; past this
+        # budget the engine streams paths span by span from checkpointed OU
+        # states (the same draws bit for bit, see StreamingFactorSource).  Per-sim
+        # panels are incompatible with streaming (they are O(n x S) themselves).
+        # The budget counts bytes of the run's dtype, as the JAX package does.
+        per_step_bytes = len(factors) * num_sims * torch.empty((), dtype=dtype).element_size()
+        path_bytes = len(sim_periods) * per_step_bytes
+        max_path_bytes = int(float(os.environ.get(MAX_PATH_BYTES_ENV, DEFAULT_MAX_PATH_BYTES)))
+        streaming = path_bytes > max_path_bytes
+        if streaming and return_sim_panels:
+            raise ValueError(
+                f"return_sim_panels=True requires materialising O(n_steps x "
+                f"num_sims) panels, but this configuration's factor paths alone "
+                f"({path_bytes / 1e9:.1f} GB) exceed the device budget "
+                f"({max_path_bytes / 1e9:.1f} GB, {MAX_PATH_BYTES_ENV}); "
+                "pass return_sim_panels=False."
+            )
+        if streaming:
+            every = _stream_span_length(max_path_bytes, per_step_bytes)
 
-    results, backward_npv = _assemble_results(
-        ctx, arrays, intrinsic, sim_periods, sims_cache.get("reg"), sims_cache.get("val"))
-    logger.info(
-        "Forward Pv: %s; Backward Pv: %s",
-        f"{results.npv:,.2f}",
-        f"{backward_npv:,.2f}",
-    )
-    stopwatches.stop("All")
-    logger.info("Profiling Report:\n%s", stopwatches.generate_profile_report())
+            # The simulation stopwatches time the upfront CHECKPOINT pass only:
+            # per-span regeneration is interleaved with consumption, so that part
+            # of the simulation cost folds into BackwardInduction /
+            # ForwardSimulation (unlike the materialised path's stopwatches).
+            def simulate(key, phase, name):
+                logger.info("Streaming %s path simulation (span=%d).", name, every)
+                with stopwatches.time(phase):
+                    return StreamingFactorSource(coeffs, num_sims, key, antithetic, every=every,
+                                                 device=device, dtype=dtype, mesh=mesh).prepare()
+        else:
+            def simulate(key, phase, name):
+                with stopwatches.time(phase):
+                    f = simulate_factor_paths(coeffs, num_sims, antithetic=antithetic, key=key,
+                                              device=device, dtype=dtype, mesh=mesh)
+                    if stopwatches.sync:
+                        stopwatches.synchronize()
+                if return_sim_panels:
+                    sims_cache[name] = _spot_panels(f, sim_vols, sim_drift)
+                return f
+
+        logger.info("Calculating LSMC value.")
+        arrays = run_lsmc(
+            ctx,
+            lambda: simulate(reg_key, "RegressionPriceSimulation", "reg"),
+            lambda: simulate(val_key, "ValuationPriceSimulation", "val"),
+            sim_vols, sim_drift, spec,
+            discount_deltas=discount_deltas,
+            extra_decisions=int(extra_decisions or 0),
+            device=device,
+            on_progress_update=on_progress_update,
+            cancelled=cancelled,
+            collect_panels=return_sim_panels,
+            stopwatches=stopwatches,
+            dtype=dtype,
+            mesh=mesh,
+        )
+        logger.info("Calculation of LSMC value complete.")
+
+        with stopwatches.span("Assembly"):
+            results, backward_npv = _assemble_results(
+                ctx, arrays, intrinsic, sim_periods, sims_cache.get("reg"),
+                sims_cache.get("val"))
+        logger.info(
+            "Forward Pv: %s; Backward Pv: %s",
+            f"{results.npv:,.2f}",
+            f"{backward_npv:,.2f}",
+        )
+        stopwatches.stop("All")
+    if logger.isEnabledFor(logging.INFO):
+        logger.info("Profiling Report:\n%s", stopwatches.generate_profile_report())
     if profile_sink is not None:
         profile_sink(stopwatches)
     return results
@@ -396,7 +403,7 @@ def _fetch_panel(panel, max_chunk_bytes: int = 256 * 2**20) -> np.ndarray:
     for p in shards:
         dst = host[:, col:col + p.shape[1]]
         for a in range(0, rows, step):
-            dst[a:a + step].copy_(p[a:a + step].to(torch.float64))
+            host_wait(dst[a:a + step].copy_, p[a:a + step].to(torch.float64))
         col += p.shape[1]
     return out
 
@@ -437,7 +444,7 @@ def _assemble_results(
     ]
     shapes = [tuple(a.shape) for a in small]
     batch_dtype = functools.reduce(torch.promote_types, (a.dtype for a in small))
-    flat = torch.cat([a.to(batch_dtype).reshape(-1) for a in small]).cpu().numpy()
+    flat = host_wait(torch.cat([a.to(batch_dtype).reshape(-1) for a in small]).cpu).numpy()
     flat = flat.astype(np.float64)
     fetched, off = [], 0
     for shp in shapes:
