@@ -30,7 +30,7 @@ from ..ops.ratchets import interp_rates_host
 from ..storage import CmdtyStorage
 from ..utils.discount import DiscountFn
 from ..utils.frequencies import PeriodLike, normalize_freq, to_period
-from ..utils.profiling import host_wait
+from ..utils.profiling import host_wait, upload
 from .common import step_economics
 
 PROFILE_COLUMNS = [
@@ -71,7 +71,7 @@ def _backward_values(ctx: ValuationContext, terminal_values: np.ndarray, extra_d
     G = ctx.num_grid_points
 
     def t(a):
-        return host_wait(torch.tensor(np.asarray(a), dtype=dtype).to, device)
+        return upload(np.asarray(a), device, dtype)
 
     grids, lo, hi, pillars = (t(ctx.grids), t(ctx.inv_space.min_inventory),
                               t(ctx.inv_space.max_inventory), t(ctx.pillars))

@@ -66,7 +66,7 @@ from ..ops.regression import (
     BasisSpec, design_matrix, fit_continuation_shards, spot_from_factors, standardize_shards,
 )
 from ..parallel.mesh import replicate, sims_mean, sum_shards
-from ..utils.profiling import Stopwatches, active, host_wait
+from ..utils.profiling import Stopwatches, active, host_wait, upload
 from .common import step_economics
 
 NUM_TRIGGER_VOLUMES = 10  # reference numTriggerPriceVolumes (LsmcStorageValuation.cs:367)
@@ -130,7 +130,7 @@ class LsmcDeviceInputs(NamedTuple):
 
 def device_inputs(ctx: ValuationContext, device, dtype=torch.float32) -> LsmcDeviceInputs:
     def t(a):
-        return host_wait(torch.tensor(np.asarray(a), dtype=dtype).to, device).contiguous()
+        return upload(np.asarray(a), device, dtype).contiguous()
 
     return LsmcDeviceInputs(
         grids=t(ctx.grids),
@@ -642,13 +642,16 @@ def _forward_program(val_factors, sim_vols, sim_drift, cont_mean0, coeffs, mus, 
             if after_span is not None:
                 after_span(BACKWARD_PCNT_TIME + (1.0 - BACKWARD_PCNT_TIME) * (i + 1) / len(spans))
         pv_by_sim = [t + p for t, p in zip(pv_total, rep(pv0))]
-    with sw.span("ForwardHealth"):
-        _check_forward_health(pv_by_sim, inv, backward_npv)
+    # The per-step outputs are device arithmetic alone: queued before the
+    # health check's fetch, the host launches them while the kernel runs.
+    # The assembly calls the user's terminal_npv_fn, so it waits for the check.
     with sw.span("StackedOutputs"):
         stacked = _stacked_outputs(torch.cat(sums_parts), torch.cat(xsums_parts), tables, dev,
                                    dfd, first, n, S, interp_kind, G, extra_decisions)
         if val_first:
             stacked = tuple(torch.cat([a, b], dim=0) for a, b in zip(outputs0, stacked))
+    with sw.span("ForwardHealth"):
+        _check_forward_health(pv_by_sim, inv, backward_npv)
     with sw.span("AssembleArrays"):
         end_spots = [spot_from_factors(last, vols[-1], drift[-1]) for last, vols, drift in
                      zip(val.last(), rep(sim_vols), rep(sim_drift))]
@@ -795,16 +798,21 @@ def _program_statics(ctx: ValuationContext, spec: BasisSpec, extra_decisions: in
     )
 
 
-def _on_device(x, device, dtype=torch.float32):
+def _on_device(x, device, dtype=torch.float32, paths: bool = False):
     """``x`` as a contiguous tensor of ``dtype`` on ``device``; a streaming
     source (which lives on its own device, in its own dtype) or a list of
-    shards (each on its shard's device) as it is."""
+    shards (each on its shard's device) as it is.  From host memory a
+    constant is uploaded without a wait (:func:`upload`); a path set
+    (``paths``) is copied with a blocking copy, since pinning GiBs of paths
+    costs more than the wait."""
     if isinstance(x, (StreamingFactorSource, list, tuple)):
         return x
-    t = torch.as_tensor(x, dtype=dtype)
     if isinstance(x, torch.Tensor) and x.device.type == device.type:
-        return t.to(device).contiguous()
-    return host_wait(t.to, device).contiguous()  # from host memory
+        return torch.as_tensor(x, dtype=dtype).to(device).contiguous()
+    if paths or isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        # a path set from host memory, or a fetch from another device type
+        return host_wait(torch.as_tensor(x, dtype=dtype).to, device).contiguous()
+    return upload(x, device, dtype).contiguous()
 
 
 def run_lsmc(
@@ -945,8 +953,8 @@ def fit_policy(
     sw = Stopwatches(device, record=profile_sink is not None)
     with sw.activate(), sw.time("All"):
         with sw.span("DeviceInputs"):
-            reg_factors, sim_vols, sim_drift = (
-                _on_device(x, device, dtype) for x in (reg_factors, sim_vols, sim_drift))
+            reg_factors = _on_device(reg_factors, device, dtype, paths=True)
+            sim_vols, sim_drift = (_on_device(x, device, dtype) for x in (sim_vols, sim_drift))
             dev = device_inputs(ctx, device, dtype)
         with sw.time("BackwardInduction"):
             backward_npv, cont_mean0, coeffs, mus, sds, vbars = _backward_program(
@@ -979,8 +987,8 @@ def reprice(
     with sw.activate(), sw.time("All"):
         with sw.span("DeviceInputs"):
             policy = LsmcPolicy(*(_on_device(t, device, dtype) for t in policy))
-            val_factors, sim_vols, sim_drift = (
-                _on_device(x, device, dtype) for x in (val_factors, sim_vols, sim_drift))
+            val_factors = _on_device(val_factors, device, dtype, paths=True)
+            sim_vols, sim_drift = (_on_device(x, device, dtype) for x in (sim_vols, sim_drift))
             dev = device_inputs(ctx, device, dtype)
         with sw.time("ForwardSimulation"):
             arrays = _forward_program(

@@ -56,7 +56,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.profiling import host_wait
+from ..utils.profiling import upload
 
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -498,8 +498,8 @@ def _ou_steps(coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int], anti
         raise ValueError(f"step0 ({step0}) must be a multiple of {_DRAW_BLOCK}.")
     num_factors = coeffs.decay.shape[1]
     fused = _fused(dtype)
-    decay = host_wait(torch.as_tensor(coeffs.decay, dtype=dtype).to, device)
-    chol = host_wait(torch.as_tensor(coeffs.chol, dtype=dtype).to, device)
+    decay = upload(coeffs.decay, device, dtype)
+    chol = upload(coeffs.chol, device, dtype)
     if y0 is None:
         width = num_sims if window is None else window[1]
         y = torch.zeros((num_factors, width), dtype=dtype, device=device)
@@ -592,8 +592,8 @@ def _path_kernel_tables(coeffs: SimCoefficients, key: Tuple[int, int], device,
     keys = torch.stack([k0, k1], dim=1).numpy().astype(np.uint32)
     coef = torch.as_tensor(np.concatenate([coeffs.decay, coeffs.chol.reshape(n, -1)], axis=1),
                            dtype=dtype)
-    return _PathKernelTables(host_wait(torch.from_numpy(keys.view(np.int32)).to, device),
-                             host_wait(coef.to, device), n, num_factors)
+    return _PathKernelTables(upload(keys.view(np.int32), device, torch.int32),
+                             upload(coef, device, dtype), n, num_factors)
 
 
 def _launch_path_sim(tables: _PathKernelTables, out: torch.Tensor, num_sims: int,

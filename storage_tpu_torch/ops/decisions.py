@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils.profiling import host_wait
+from ..utils.profiling import upload
 
 
 def clipped_decision_bounds(
@@ -119,7 +119,7 @@ def bang_bang_decisions_fixed(
     # Per-slot weights, the same float64 host constants as the reference
     # build, applied in the working dtype.
     if weights is None:
-        weights = [host_wait(torch.as_tensor(a, dtype=yw.dtype).to, yw.device) for a in rows]
+        weights = [upload(a, yw.device, yw.dtype) for a in rows]
     zero_w, zero_i, nspan_w, nspan_i = weights
     yw_e = yw[..., None]
     yi_e = yi[..., None]

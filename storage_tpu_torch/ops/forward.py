@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils.profiling import host_wait
+from ..utils.profiling import upload
 from . import count_launch
 from .decisions import bang_bang_decisions_fixed, decision_weights
 from .interp import fractional_index
@@ -63,8 +63,7 @@ def forward_sim_reference(
     n, num_factors, S = factors.shape
     B = spec.num_basis
     # The slot weights, uploaded once, as the kernel's launcher does.
-    weights = host_wait(torch.tensor(decision_weights(extra_decisions), dtype=inv0.dtype).to,
-                        inv0.device)
+    weights = upload(decision_weights(extra_decisions), inv0.device, inv0.dtype)
     inv = inv0.clone()
     pv = torch.zeros_like(inv)
     sums, xsums = [], []
@@ -170,7 +169,7 @@ def _forward_sim_cuda(factors, inv0, tables, mus, sds, pillars, scalars, spec: B
         check_operand(name, t, shape, dtype)
     lib = kernels()
     dev = factors.device
-    weights = host_wait(torch.tensor(decision_weights(extra_decisions), dtype=dtype).to, dev)
+    weights = upload(decision_weights(extra_decisions), dev, dtype)
     D = weights.shape[1]
     pitch = lib.forward_sim_f64_row_pitch(B) if f64 else lib.forward_sim_row_pitch(B)
     records = pack_records(tables, mus, sds, pillars, scalars, pitch)

@@ -13,8 +13,9 @@ events, so the device work under a span is read from a trace.  Spans never
 synchronise.  While the call runs, its recorder is the *active* one
 (:meth:`Stopwatches.activate`, a context variable, so each thread sees its
 own call's), which is how code below the entry points reaches it:
-:func:`active` and :func:`host_wait`.  Without a recorder every span site is
-one attribute check, and nothing is allocated, timed or counted.
+:func:`active`, :func:`host_wait` and :func:`upload`.  Without a recorder
+every span site is one attribute check, and nothing is allocated, timed or
+counted.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import time
 from contextlib import contextmanager, nullcontext
 from typing import Dict, List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 
@@ -189,18 +191,44 @@ def active() -> Stopwatches:
 
 def host_wait(op, *args):
     """``op(*args)``, a call after which the host has waited for the device:
-    a fetch to the host, an upload from pageable host memory (``.to(device)``
-    without ``non_blocking`` waits for its stream, as ATen's
-    ``memcpy_and_sync`` does), an event wait.  Every such point of the port
-    goes through here; in a recorded call it is a ``Wait`` span under the
-    span that needed it, and one more ``host_syncs``.  The same sites count
-    on the CPU, where nothing waits, as on a card."""
+    a fetch to the host, a blocking copy of a path set from host memory, an
+    event wait.  Every such point of the port goes through here; in a
+    recorded call it is a ``Wait`` span under the span that needed it, and
+    one more ``host_syncs``.  The same sites count on the CPU, where nothing
+    waits, as on a card.  Uploads of host constants do not come here: they go
+    through :func:`upload`, which does not wait."""
     sw = _ACTIVE.get()
     if not sw.record:
         return op(*args)
     sw.count("host_syncs")
     with sw.span("Wait"):
         return op(*args)
+
+
+def upload(array, device, dtype: torch.dtype) -> torch.Tensor:
+    """``array`` (a NumPy array, a number or a host tensor) as a tensor of
+    ``dtype`` on ``device``, without waiting for the device.
+
+    On a card the host values are copied, and cast, into a new block of
+    pinned memory, so a caller that changes its array afterwards cannot
+    change what lands on the device; the copy to the device is then queued
+    on the device's current stream (``non_blocking``), and torch's
+    pinned-memory allocator keeps the block until that copy has run.  The
+    host copy is NumPy's, on this thread: a torch copy of more than 32,768
+    elements would wake torch's worker threads, which took milliseconds on a
+    busy host.  On the CPU it is the host tensor (a NumPy array or a number
+    copied, as ``torch.tensor`` does).  In a recorded call it counts one
+    ``uploads`` (on the CPU too, as :func:`host_wait` counts) and opens no
+    span."""
+    _ACTIVE.get().count("uploads")
+    device = torch.device(device)
+    if device.type != "cuda":
+        return (torch.as_tensor(array, dtype=dtype) if isinstance(array, torch.Tensor)
+                else torch.tensor(array, dtype=dtype)).to(device)
+    values = array.numpy() if isinstance(array, torch.Tensor) else array
+    pinned = torch.empty(np.shape(values), dtype=dtype, pin_memory=True)
+    pinned.numpy()[...] = values
+    return pinned.to(device, non_blocking=True)
 
 
 def self_times_ns(spans: Sequence[Span]) -> List[int]:

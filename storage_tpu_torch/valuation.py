@@ -49,7 +49,7 @@ from .storage import CmdtyStorage
 from .types import TriggerPricePoint, TriggerPriceProfile
 from .utils.basis import THREE_FACTOR_SEASONAL_ALIASES, BasisFunctionsType, as_monomials
 from .utils.frequencies import PeriodLike, normalize_freq, to_period
-from .utils.profiling import Stopwatches, host_wait
+from .utils.profiling import Stopwatches, host_wait, upload
 
 logger: logging.Logger = logging.getLogger("storage_tpu_torch.multi_factor")
 
@@ -297,8 +297,8 @@ def _multi_factor_calc(
         # set can be freed before the valuation set allocates.  With panels, each
         # set's spot panel [m+1, S] is kept (on the device) as it is simulated.
         sims_cache = {}
-        sim_vols = host_wait(torch.as_tensor(coeffs.vols, dtype=dtype).to, device)
-        sim_drift = host_wait(torch.as_tensor(coeffs.log_fwd_drift, dtype=dtype).to, device)
+        sim_vols = upload(coeffs.vols, device, dtype)
+        sim_drift = upload(coeffs.log_fwd_drift, device, dtype)
 
         # Long-horizon x production-path configs (e.g. multi-year hourly) cannot
         # materialise the full [m+1, F, S] factor tensor on the device; past this

@@ -8,10 +8,21 @@ On the CPU, at 256 paths of the benchmark's daily case
   call identity a call; every ``Wait`` sits under a named span; a span's
   self time is its duration less its children's, so the self times add up
   to the call's ``All``;
-- ``host_syncs`` is pinned: 63 a valuation, 24 a fit, 30 a reprice.  The
-  same sites count on the CPU as on a card (the plain versions of the
-  kernels upload what the launchers upload), so these are the card's
-  numbers; the ``cuda`` cases below check them there;
+- ``host_syncs`` and ``uploads`` are pinned.  ``host_syncs`` counts the
+  points where the host waits: 4 a valuation (the intrinsic DP's fetch, the
+  two health fetches, the assembly's fetch of the small outputs), none in a
+  fit, 1 a reprice (its health fetch); a valuation with panels and progress
+  at 2,000 paths adds 8 panel fetches (six fields, two spot panels) and, on
+  a card, one event wait a ``Progress`` span (40).  ``uploads`` counts the
+  host constants uploaded without a wait: 59 a valuation, 24 a fit, 29 a
+  reprice, 154 with panels.  Each sum is the number of waits the call made
+  while uploads waited too: 63, 24, 30 and 206.  The same sites count on
+  the CPU as on a card (the plain versions of the kernels upload what the
+  launchers upload), so these are the card's numbers; the ``cuda`` cases
+  below check them there;
+- the forward pass queues its per-step outputs before the health check's
+  fetch, and a failed check (non-finite PVs; PV and inventory paths all
+  zero) raises before the user's ``terminal_npv_fn`` is called;
 - without a sink nothing is recorded and nothing synchronises (counted with
   monkeypatches), the recorder is released after a call (also one that
   raises), and the profile report is built only when INFO logging is on;
@@ -24,7 +35,10 @@ launch encloses the launch in the profiler's trace within 50 us (the spans'
 ``time.time_ns()`` is the trace's clock), and under
 ``torch.cuda.set_sync_debug_mode("warn")`` a valuation (plain, and with
 panels and progress) and a reprice warn once for each ``host_syncs`` that is
-not an event wait.
+not an event wait (a reprice once); an upload lands with the values its
+array had when it was called, though the array is overwritten before the
+copy runs; and a reprice whose uploads are made blocking copies followed by
+a ``torch.cuda.synchronize()`` gives the same outputs bit for bit.
 """
 import logging
 import math
@@ -32,6 +46,7 @@ import sys
 import warnings
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,13 +59,18 @@ import storage_tpu_torch as st  # noqa: E402
 import trace_spans  # noqa: E402
 from portbench import cases, driver  # noqa: E402
 from storage_tpu_torch.engines import lsmc  # noqa: E402
+from storage_tpu_torch.exceptions import StorageError  # noqa: E402
 from storage_tpu_torch.utils import profiling  # noqa: E402
 from storage_tpu_torch.utils.profiling import Span, Stopwatches  # noqa: E402
 
 SIMS = 256
 SEED = 1601
 CFG = cases.load_json("configs", "daily_ratchet_3f")
-VALUE_SYNCS, FIT_SYNCS, REPRICE_SYNCS = 63, 24, 30
+VALUE_SYNCS, FIT_SYNCS, REPRICE_SYNCS = 4, 0, 1
+VALUE_UPLOADS, FIT_UPLOADS, REPRICE_UPLOADS = 59, 24, 29
+PANELS_SIMS, PANELS_SYNCS, PANELS_UPLOADS, PROGRESS_SPANS = 2000, 12, 154, 40
+# The waits of each call while every upload waited: the sums of the two counters.
+VALUE_WAITS_BEFORE, FIT_WAITS_BEFORE, REPRICE_WAITS_BEFORE, PANELS_WAITS_BEFORE = 63, 24, 30, 206
 DECISION_STEPS = 340
 
 VALUE_TREE = {"All": None, "Compile": "All", "Intrinsic": "All", "DeviceInputs": "All",
@@ -105,6 +125,15 @@ def policy_sws():
     return _policy_calls()
 
 
+@pytest.fixture(scope="module")
+def panels_sw():
+    got = []
+    _value(num_sims=PANELS_SIMS, panels=True, on_progress_update=lambda f: None,
+           profile_sink=got.append)
+    assert len(got) == 1
+    return got[0]
+
+
 def _check_tree(sw: Stopwatches, tree: dict):
     names = [s.name for s in sw.spans if s.name not in UNTIMED]
     assert sorted(names) == sorted(tree), names
@@ -119,12 +148,13 @@ def _check_tree(sw: Stopwatches, tree: dict):
             p = sw.spans[s.parent]
             assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns, (s, p)
     assert {s.call for s in sw.spans} == {sw.call}
-    assert sum(s.name == "Wait" for s in sw.spans) == sw.counters["host_syncs"]
+    assert sum(s.name == "Wait" for s in sw.spans) == sw.counters.get("host_syncs", 0)
 
 
 def test_valuation_records_each_span_once(value_sw):
     _check_tree(value_sw, VALUE_TREE)
-    assert value_sw.counters == {"host_syncs": VALUE_SYNCS, "decision_steps": DECISION_STEPS}
+    assert value_sw.counters == {"host_syncs": VALUE_SYNCS, "uploads": VALUE_UPLOADS,
+                                 "decision_steps": DECISION_STEPS}
     # The phases' stopwatches read their spans' durations.
     for p in value_sw.PHASES + ("All",):
         (span,) = [s for s in value_sw.spans if s.name == p]
@@ -136,9 +166,32 @@ def test_fit_and_reprice_record_each_span_once(policy_sws):
     fit, rep = policy_sws
     _check_tree(fit, FIT_TREE)
     _check_tree(rep, REPRICE_TREE)
-    assert fit.counters == {"host_syncs": FIT_SYNCS, "decision_steps": DECISION_STEPS}
-    assert rep.counters == {"host_syncs": REPRICE_SYNCS}
+    assert FIT_SYNCS == 0 and fit.counters == {"uploads": FIT_UPLOADS,
+                                               "decision_steps": DECISION_STEPS}
+    assert rep.counters == {"host_syncs": REPRICE_SYNCS, "uploads": REPRICE_UPLOADS}
     assert fit.call != rep.call
+
+
+def test_panels_and_progress_counts(panels_sw):
+    """At 2,000 paths with panels and progress: the panel fetches are waits,
+    and on a card each ``Progress`` span waits on one event besides (none
+    here: the CPU has no events to wait on)."""
+    assert panels_sw.counters == {"host_syncs": PANELS_SYNCS, "uploads": PANELS_UPLOADS,
+                                  "decision_steps": DECISION_STEPS}
+    assert sum(s.name == "Progress" for s in panels_sw.spans) == PROGRESS_SPANS
+
+
+@pytest.mark.parametrize("which", ["value", "fit", "reprice", "panels"])
+def test_every_wait_that_went_is_an_upload(which, value_sw, policy_sws, panels_sw):
+    """A call's waits and uploads add up to the waits it made while every
+    upload waited: no fetch or event wait went, and no upload was added."""
+    sw, before = {"value": (value_sw, VALUE_WAITS_BEFORE),
+                  "fit": (policy_sws[0], FIT_WAITS_BEFORE),
+                  "reprice": (policy_sws[1], REPRICE_WAITS_BEFORE),
+                  "panels": (panels_sw, PANELS_WAITS_BEFORE)}[which]
+    # On a card each Progress span holds one event wait, which the CPU does not make.
+    events = sum(s.name == "Progress" for s in sw.spans)
+    assert sw.counters.get("host_syncs", 0) + events + sw.counters["uploads"] == before
 
 
 @pytest.mark.parametrize("which", ["value", "fit", "reprice"])
@@ -178,8 +231,75 @@ def test_the_recorder_is_released_after_a_call(value_sw):
     with sw.activate():
         assert profiling.active() is sw
         profiling.host_wait(lambda: None)
-    assert sw.counters == {"host_syncs": 1} and [s.name for s in sw.spans] == ["Wait"]
+        got = profiling.upload(np.arange(3.0), "cpu", torch.float32)
+    assert sw.counters == {"host_syncs": 1, "uploads": 1}
+    assert [s.name for s in sw.spans] == ["Wait"]
+    assert got.dtype == torch.float32 and got.tolist() == [0.0, 1.0, 2.0]
     assert not profiling.active().record
+
+
+def _forward_call(fault, monkeypatch, num_sims=64):
+    """The reprice's forward program on the CPU, recorded, with a
+    ``terminal_npv_fn`` that logs its calls, and with ``fault``: ``None``, a
+    NaN factor in one sim (its PV is not finite) or a forward pass that
+    leaves every sim's PV and final inventory at 0.  Returns the recorder,
+    the terminal function's calls and the error raised (or None)."""
+    p = driver.Program(CFG, cases.load_json("traffic", "reprice_1m"), SEED, "cpu", num_sims)
+    val = p._simulate(p.coeffs, num_sims, key=p._prng_key(SEED + 3), antithetic=CFG["antithetic"],
+                      device="cpu", dtype=torch.float32)
+    if fault == "nan_pv":
+        val[5, 0, 3] = float("nan")
+    elif fault == "zero_paths":
+        forward_sim, step0 = lsmc.forward_sim, lsmc._step0_single_sim
+
+        def zero_forward_sim(*args, **kw):
+            sums, xsums, inv, pv = forward_sim(*args, **kw)
+            return sums, xsums, torch.zeros_like(inv), torch.zeros_like(pv)
+
+        def zero_step0(*args):
+            inv, pv, outputs = step0(*args)
+            return torch.zeros_like(inv), torch.zeros_like(pv), outputs
+
+        monkeypatch.setattr(lsmc, "forward_sim", zero_forward_sim)
+        monkeypatch.setattr(lsmc, "_step0_single_sim", zero_step0)
+    calls = []
+
+    def terminal(spots, inv):
+        calls.append(1)
+        return torch.zeros_like(inv)
+
+    device = torch.device("cpu")
+    statics = dict(lsmc._program_statics(p.ctx, p.spec, 0), terminal_fn=terminal)
+    sw = Stopwatches(device, record=True)
+    error = None
+    with sw.activate():
+        try:
+            vols, drift = (lsmc._on_device(x, device) for x in (p.coeffs.vols,
+                                                                 p.coeffs.log_fwd_drift))
+            lsmc._forward_program(
+                val, vols, drift, p.policy.cont_mean0, p.policy.coeffs, p.policy.mus,
+                p.policy.sds, p.policy.vbars, lsmc.device_inputs(p.ctx, device),
+                p.policy.backward_npv, discount_deltas=CFG["discount_deltas"], **statics)
+        except StorageError as e:
+            error = e
+    return sw, calls, error
+
+
+@pytest.mark.parametrize("fault,match", [(None, None), ("nan_pv", "non-finite"),
+                                         ("zero_paths", "identically zero")])
+def test_forward_health_raises_after_the_outputs_are_queued(fault, match, monkeypatch):
+    """The per-step outputs are queued before the health check; the check
+    still raises on non-finite PVs and on PV and inventory paths that are
+    all zero, and then the user's terminal function is never called."""
+    sw, calls, error = _forward_call(fault, monkeypatch)
+    names = [s.name for s in sw.spans if s.name not in UNTIMED]
+    assert names[names.index("StackedOutputs"):] == (
+        ["StackedOutputs", "ForwardHealth"] + (["AssembleArrays"] if fault is None else []))
+    assert sw.counters["host_syncs"] == 1  # the health check's fetch
+    if fault is None:
+        assert error is None and calls == [1]
+    else:
+        assert error is not None and match in str(error) and calls == []
 
 
 def test_profile_report_only_when_info_is_on(monkeypatch):
@@ -224,7 +344,7 @@ def _hand_trace(entry: str):
     for off in (100_000, 550_000):
         events += [((off + 70_000) / 1e3, (off + 90_000) / 1e3, "Memcpy HtoD"),
                    ((off + 170_000) / 1e3, (off + 380_000) / 1e3, "backward_update_kernel")]
-    counters = [{"host_syncs": 1, "decision_steps": 4}] * 2
+    counters = [{"host_syncs": 1, "uploads": 3, "decision_steps": 4}] * 2
     return calls, events, counters, 0, 1_000_000
 
 
@@ -252,10 +372,10 @@ def test_readings_are_finite(entry):
     got = trace_spans.readings(entry, calls, counters, events, t0, t1)
     keys = (["compile_s", "intrinsic_s", "assembly_s", "front_end_idle_s", "progress_wait_s",
              "backward_step_host_us", "host_other_s"] if entry == "value"
-            else ["triggers_s", "program_idle_s"]) + ["host_syncs", "device_inputs_s"]
+            else ["triggers_s", "program_idle_s"]) + ["host_syncs", "uploads", "device_inputs_s"]
     for k in keys:
         assert math.isfinite(got[k]) and got[k] >= 0, k
-    assert got["host_syncs"] == 1
+    assert (got["host_syncs"], got["uploads"]) == (1, 3)
     if entry == "value":
         assert got["backward_step_host_us"] == pytest.approx(140e-6 * 1e6 / 4)
         assert got["front_end_idle_s"] == pytest.approx(80e-6)
@@ -328,6 +448,11 @@ def test_valuation_syncs_are_host_syncs(cuda, case):
     waits = sum(s.name == "Wait" and sw.spans[s.parent].name == "Progress" for s in sw.spans)
     if case == "plain":
         assert sw.counters["host_syncs"] == VALUE_SYNCS and waits == 0
+        assert sw.counters["uploads"] == VALUE_UPLOADS
+    else:
+        assert (sw.counters["host_syncs"], waits) == (PANELS_SYNCS + PROGRESS_SPANS,
+                                                      PROGRESS_SPANS)
+        assert sw.counters["host_syncs"] + sw.counters["uploads"] == PANELS_WAITS_BEFORE
     assert sw.counters["decision_steps"] == DECISION_STEPS
     assert _sync_warnings(lambda: _value(**kw)) == sw.counters["host_syncs"] - waits
 
@@ -336,7 +461,9 @@ def test_valuation_syncs_are_host_syncs(cuda, case):
 def test_reprice_syncs_are_host_syncs(cuda):
     _policy_calls("cuda", 8192)  # warm
     fit, rep = _policy_calls("cuda", 8192)
-    assert (fit.counters["host_syncs"], rep.counters["host_syncs"]) == (FIT_SYNCS, REPRICE_SYNCS)
+    assert (fit.counters.get("host_syncs", 0), rep.counters["host_syncs"]) == (FIT_SYNCS,
+                                                                                REPRICE_SYNCS)
+    assert (fit.counters["uploads"], rep.counters["uploads"]) == (FIT_UPLOADS, REPRICE_UPLOADS)
     mix = cases.load_json("traffic", "reprice_1m")
     p = driver.Program(CFG, mix, SEED, "cuda", 8192)
     val = p._simulate(p.coeffs, 8192, key=p._prng_key(9), antithetic=CFG["antithetic"],
@@ -347,3 +474,54 @@ def test_reprice_syncs_are_host_syncs(cuda):
                                             discount_deltas=CFG["discount_deltas"],
                                             device="cuda"))
     assert n == REPRICE_SYNCS
+
+
+@pytest.mark.cuda
+def test_upload_lands_the_values_it_was_called_with(cuda):
+    """The device is kept busy, so the copy runs well after ``upload``
+    returns; the array is overwritten at once, and the upload still lands
+    the values it had at the call."""
+    a = np.arange(1 << 22, dtype=np.float64)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device time ahead of the copy
+    got = profiling.upload(a, cuda, torch.float32)
+    a[:] = -1.0
+    assert torch.equal(got.cpu(), torch.arange(1 << 22, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_reprice_is_bit_equal_with_blocking_uploads(cuda, monkeypatch):
+    """A reprice (with its fresh path set) gives the same outputs bit for
+    bit when every upload is a blocking copy followed by a synchronise."""
+    from storage_tpu_torch import valuation
+    from storage_tpu_torch.engines import intrinsic
+    from storage_tpu_torch.models import simulation
+    from storage_tpu_torch.ops import decisions, forward
+
+    mix = cases.load_json("traffic", "reprice_1m")
+    p = driver.Program(CFG, mix, SEED, "cuda", 65536)
+
+    def run():
+        val = p._simulate(p.coeffs, 65536, key=p._prng_key(7), antithetic=CFG["antithetic"],
+                          device="cuda", dtype=torch.float32)
+        a = lsmc.reprice(p.ctx, p.policy, val, p.coeffs.vols, p.coeffs.log_fwd_drift, p.spec,
+                         discount_deltas=CFG["discount_deltas"], device="cuda")
+        return [x.cpu() for x in (a.npv, a.deltas, a.profile_means, a.pv_by_sim,
+                                  a.trigger_has_inject, a.trigger_has_withdraw,
+                                  a.trigger_inject_volumes, a.trigger_inject_prices,
+                                  a.trigger_withdraw_volumes, a.trigger_withdraw_prices)]
+
+    fast = run()
+
+    def blocking(array, device, dtype=None):
+        t = (torch.as_tensor(array, dtype=dtype) if isinstance(array, torch.Tensor)
+             else torch.tensor(array, dtype=dtype)).to(device)
+        torch.cuda.synchronize()
+        return t
+
+    for module in (lsmc, decisions, forward, simulation, valuation, intrinsic):
+        monkeypatch.setattr(module, "upload", blocking)
+    slow = run()
+    for a, b in zip(fast, slow):  # bytes, so that the masked trigger rows' NaNs compare too
+        assert (a.dtype, a.shape) == (b.dtype, b.shape)
+        assert a.numpy().tobytes() == b.numpy().tobytes()

@@ -11,7 +11,8 @@ without one) and keeps each call's spans and counters
 (``storage_tpu_torch.utils.profiling``).  Prints, and writes as JSON
 (default ``chiprun_out/trace_spans_<cell>.json``):
 
-- per span name its time and self time per call, and the counters;
+- per span name its time and self time per call, and the counters
+  (``host_syncs``, ``uploads``, ``decision_steps``);
 - the device's idle time under each innermost span (a ``Wait`` or ``Sync``
   named with its parent; time outside every call: ``outside the program``),
   which adds up to the traced window's idle time;
@@ -166,8 +167,11 @@ def readings(entry: str, calls, counters, events, t0: int, t1: int) -> Dict[str,
     def t(name, key="s"):
         return times.get(name, {}).get(key, 0.0)
 
-    syncs = sorted({c.get("host_syncs", 0) for c in counters})
-    out = {"host_syncs": syncs[0] if len(syncs) == 1 else float("nan"),
+    def per_call(key):  # a count every call makes alike; NaN where calls differ
+        got = {c.get(key, 0) for c in counters}
+        return got.pop() if len(got) == 1 else float("nan")
+
+    out = {"host_syncs": per_call("host_syncs"), "uploads": per_call("uploads"),
            "device_inputs_s": t("DeviceInputs")}
     steps = sum(c.get("decision_steps", 0) for c in counters)
     if steps:
