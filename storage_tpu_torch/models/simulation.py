@@ -56,7 +56,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.profiling import upload
+from ..utils.profiling import active, host_wait, upload
 
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -739,6 +739,12 @@ class StreamingFactorSource:
     used) each shard keeps its own checkpoints and regenerates only its own
     window of each span on its own device, so no device holds the whole set:
     :meth:`factors` and :meth:`last` return one tensor per shard.
+
+    In a recorded call (one given a ``profile_sink``) each shard's checkpoint
+    pass is a ``StreamCheckpoints`` span and each shard's regeneration of a
+    span a ``StreamSpan`` span, counted in ``stream_checkpoints`` and
+    ``streamed_spans``: one each per path-kernel launch on a card.  A read
+    served by the span cache is neither.
     """
 
     def __init__(self, coeffs: SimCoefficients, num_sims: int, key: Tuple[int, int],
@@ -764,11 +770,15 @@ class StreamingFactorSource:
     def prepare(self) -> "StreamingFactorSource":
         """Eagerly run the checkpoint pass (otherwise lazy on first read), so
         that callers can attribute the upfront simulation cost to their own
-        timing phase.  Returns ``self`` for chaining."""
+        timing phase.  The wait for the pass is one :func:`host_wait`.
+        Returns ``self`` for chaining."""
         self._shard_checkpoints()
+        host_wait(self._synchronize)
+        return self
+
+    def _synchronize(self) -> None:
         for device in {d for d, _ in self._shards if d.type == "cuda"}:
             torch.cuda.synchronize(device)
-        return self
 
     def spans(self):
         """The aligned spans [(a, b), ...] covering [0, num_steps)."""
@@ -790,19 +800,22 @@ class StreamingFactorSource:
     def _shard_checkpoints(self):
         if self._ckpts is None:
             self._ckpts = []
+            sw = active()
             for device, window in self._shards:
-                tables = self._tables_on(device)
-                if tables is not None:
-                    out = torch.empty(
-                        (_num_checkpoints(self.num_steps, self.every), self.num_factors,
-                         self._width(window)), dtype=self.dtype, device=device)
-                    self._ckpts.append(_launch_path_sim(tables, out, self.num_sims,
-                                                        self.antithetic, every=self.every,
-                                                        window=window))
-                else:
-                    self._ckpts.append(factor_checkpoints_reference(
-                        self._coeffs, self.num_sims, self._key, self.antithetic, self.every,
-                        device, self.dtype, window))
+                sw.count("stream_checkpoints")
+                with sw.span("StreamCheckpoints"):
+                    tables = self._tables_on(device)
+                    if tables is not None:
+                        out = torch.empty(
+                            (_num_checkpoints(self.num_steps, self.every), self.num_factors,
+                             self._width(window)), dtype=self.dtype, device=device)
+                        self._ckpts.append(_launch_path_sim(tables, out, self.num_sims,
+                                                            self.antithetic, every=self.every,
+                                                            window=window))
+                    else:
+                        self._ckpts.append(factor_checkpoints_reference(
+                            self._coeffs, self.num_sims, self._key, self.antithetic, self.every,
+                            device, self.dtype, window))
         return self._ckpts
 
     def _checkpoints(self):
@@ -833,18 +846,22 @@ class StreamingFactorSource:
             # the path budget sized to ONE [span, F, S] block.
             self._span_cache = None
             outs = []
+            sw = active()
             for (device, window), ckpts in zip(self._shards, self._shard_checkpoints()):
-                tables = self._tables_on(device)
-                if tables is not None:
-                    out = torch.empty((s1 - s0, self.num_factors, self._width(window)),
-                                      dtype=self.dtype, device=device)
-                    _launch_path_sim(tables, out, self.num_sims, self.antithetic, y0=ckpts[i],
-                                     step0=s0, num_steps=s1 - s0, window=window)
-                else:
-                    out = simulate_factor_paths_reference(
-                        self._coeffs, self.num_sims, self._key, self.antithetic, device,
-                        y0=ckpts[i], step0=s0, num_steps=s1 - s0, dtype=self.dtype,
-                        window=window)
+                sw.count("streamed_spans")
+                with sw.span("StreamSpan"):
+                    tables = self._tables_on(device)
+                    if tables is not None:
+                        out = torch.empty((s1 - s0, self.num_factors, self._width(window)),
+                                          dtype=self.dtype, device=device)
+                        _launch_path_sim(tables, out, self.num_sims, self.antithetic,
+                                         y0=ckpts[i], step0=s0, num_steps=s1 - s0,
+                                         window=window)
+                    else:
+                        out = simulate_factor_paths_reference(
+                            self._coeffs, self.num_sims, self._key, self.antithetic, device,
+                            y0=ckpts[i], step0=s0, num_steps=s1 - s0, dtype=self.dtype,
+                            window=window)
                 outs.append(out)
             self._span_cache = (i, outs)
         outs = [out[a - s0:b - s0] for out in outs]

@@ -12,7 +12,9 @@ without one) and keeps each call's spans and counters
 (default ``chiprun_out/trace_spans_<cell>.json``):
 
 - per span name its time and self time per call, and the counters
-  (``host_syncs``, ``uploads``, ``decision_steps``);
+  (``host_syncs``, ``uploads``, ``decision_steps``; where path sets stream,
+  ``stream_checkpoints`` and ``streamed_spans``, beside the path kernel's
+  launches a call counted on the device, ``k3_launches``);
 - the device's idle time under each innermost span (a ``Wait`` or ``Sync``
   named with its parent; time outside every call: ``outside the program``),
   which adds up to the traced window's idle time;
@@ -173,6 +175,10 @@ def readings(entry: str, calls, counters, events, t0: int, t1: int) -> Dict[str,
 
     out = {"host_syncs": per_call("host_syncs"), "uploads": per_call("uploads"),
            "device_inputs_s": t("DeviceInputs")}
+    if any("stream_checkpoints" in c for c in counters):  # streamed path sets
+        out.update(stream_checkpoints=per_call("stream_checkpoints"),
+                   streamed_spans=per_call("streamed_spans"),
+                   stream_checkpoints_s=t("StreamCheckpoints"), stream_span_s=t("StreamSpan"))
     steps = sum(c.get("decision_steps", 0) for c in counters)
     if steps:
         out["backward_step_host_us"] = 1e6 * t("BackwardScan") * n / steps
@@ -234,6 +240,7 @@ def traced(workload: str, seed: int, calls: int = 0) -> dict:
         "workload": workload, "seed": seed, "calls": calls, "window_s": window,
         "device": torch.cuda.get_device_name(0),
         "idle_s": window - busy, "device_idle_pct": 100.0 * (1.0 - busy / window),
+        "k3_launches": sum(yardstick.is_k3(n) for _, _, n in events) / calls,
         "counters": counters, "spans": span_times(spans),
         "idle_by_span": sorted(idle.items(), key=lambda kv: -kv[1])[:10],
         "idle_by_span_total_s": sum(idle.values()),
@@ -260,7 +267,8 @@ def main(argv=None) -> int:
     out.write_text(json.dumps(res, indent=1))
     print(f"{res['workload']}: {res['calls']} calls, window {res['window_s']:.4f} s, idle "
           f"{res['idle_s']:.4f} s ({res['device_idle_pct']:.2f}%), split "
-          f"{res['idle_by_span_total_s']:.4f} s; counters {res['counters'][0]}")
+          f"{res['idle_by_span_total_s']:.4f} s; K3 launches a call {res['k3_launches']}; "
+          f"counters {res['counters'][0]}")
     for name, v in sorted(res["spans"].items(), key=lambda kv: -kv[1]["s"]):
         print(f"  span {name:<34} {v['s']:.6f} s  self {v['self_s']:.6f} s")
     for name, v in res["idle_by_span"]:
