@@ -474,6 +474,14 @@ def phase_build():
     print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
 
 
+def _step_by_step(devices) -> bool:
+    """The backward scan's glue run step by step (``lsmc._glue_graph``'s
+    stand-in) in the runs that record K1's launches: each records K1's own
+    operands, where the graph's scan hands K1 buffers that its replays
+    overwrite."""
+    return False
+
+
 def phase_capture():
     """One 1M-path valuation recording one backward and the forward launch."""
     import storage_tpu_torch as tt
@@ -482,7 +490,8 @@ def phase_capture():
     captured = {}
     from storage_tpu_torch import valuation
 
-    real = (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs)
+    real = (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs,
+            lsmc._glue_graph)
     real_sim = valuation.simulate_factor_paths
     calls = {"bwd": 0, "table": 0}
     captured["sim"] = []
@@ -501,25 +510,26 @@ def phase_capture():
         captured["fwd"] = (args, kw)
         return real[1](*args, **kw)
 
-    def record_table(*args):  # one table per backward launch, built just before it
+    def record_table(*args, **kw):  # one table per backward launch, built just before it
         calls["table"] += 1
         if calls["table"] == CAPTURE_LAUNCH:
             captured["table"] = args
-        return real[2](*args)
+        return real[2](*args, **kw)
 
     def record_dev(*args, **kw):
         captured["dev"] = real[3](*args, **kw)
         return captured["dev"]
 
-    lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs = (
-        record_bwd, record_fwd, record_table, record_dev)
+    (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs,
+     lsmc._glue_graph) = (record_bwd, record_fwd, record_table, record_dev, _step_by_step)
     valuation.simulate_factor_paths = record_sim
     try:
         t0 = time.perf_counter()
         res = value_case(tt, NUM_SIMS, SEED, device="cuda")
         wall = time.perf_counter() - t0
     finally:
-        lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs = real
+        (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs,
+         lsmc._glue_graph) = real
         valuation.simulate_factor_paths = real_sim
     check(all(k in captured for k in ("bwd", "fwd", "table", "dev"))
           and len(captured["sim"]) == PATH_SETS, "capture run did not reach every kernel")
@@ -1343,7 +1353,8 @@ class _recording:
         from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource)
+        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource,
+                     lsmc._glue_graph)
         calls, recorded = {"bwd": 0, "fwd": 0}, self.recorded
 
         def recording(kind, real):
@@ -1362,6 +1373,7 @@ class _recording:
 
         lsmc.backward_update, lsmc.forward_sim = (recording("bwd", self.real[0]),
                                                   recording("fwd", self.real[1]))
+        lsmc._glue_graph = _step_by_step
         valuation.StreamingFactorSource = Source
         return recorded
 
@@ -1369,7 +1381,8 @@ class _recording:
         from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource = self.real
+        (lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource,
+         lsmc._glue_graph) = self.real
 
 
 def _check_recorded(label, recorded, n_steps, every, spans, min_tiles_per_block):
@@ -1689,7 +1702,8 @@ class _shard_recording:
         from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths)
+        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths,
+                     lsmc._glue_graph)
         calls, recorded = {"bwd": 0, "fwd": 0}, self.recorded
         wanted = {"bwd": (self.backward_launch - 1) * self.shards + self.shard + 1,
                   "fwd": self.shard + 1}
@@ -1708,6 +1722,7 @@ class _shard_recording:
 
         lsmc.backward_update = recording("bwd", "K1", self.real[0])
         lsmc.forward_sim = recording("fwd", "K2", self.real[1])
+        lsmc._glue_graph = _step_by_step
         valuation.simulate_factor_paths = record_sim
         return recorded
 
@@ -1715,7 +1730,8 @@ class _shard_recording:
         from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths = self.real
+        (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths,
+         lsmc._glue_graph) = self.real
 
 
 def _check_window(label, coeffs, num_sims, key, antithetic, window, dtype=None, steps=None,
@@ -2308,7 +2324,7 @@ class _dtype_recording:
 
         self.draws_from = self.draws_from or valuation
         self.real = (lsmc.backward_update, lsmc.forward_sim,
-                     self.draws_from.simulate_factor_paths)
+                     self.draws_from.simulate_factor_paths, lsmc._glue_graph)
 
         def note(kernel, dtype, operands):
             key = (kernel, str(dtype).split(".")[-1])
@@ -2329,13 +2345,15 @@ class _dtype_recording:
 
         lsmc.backward_update = recording("K1", 2, self.real[0])
         lsmc.forward_sim = recording("K2", 0, self.real[1])
+        lsmc._glue_graph = _step_by_step
         self.draws_from.simulate_factor_paths = record_sim
         return self
 
     def __exit__(self, *exc):
         from storage_tpu_torch.engines import lsmc
 
-        lsmc.backward_update, lsmc.forward_sim, self.draws_from.simulate_factor_paths = self.real
+        (lsmc.backward_update, lsmc.forward_sim, self.draws_from.simulate_factor_paths,
+         lsmc._glue_graph) = self.real
 
 
 def _check_path_set(label, coeffs, num_sims, key, antithetic, dtype, plain_once=False):

@@ -59,7 +59,10 @@ import torch
 from ..compile import ValuationContext
 from ..exceptions import StorageError
 from ..models.simulation import StreamingFactorSource
-from ..ops.backward import assemble_regression, backward_update
+from ..ops.backward import (
+    assemble_regression, backward_partials, backward_update, launch_backward_update,
+    reduce_partials,
+)
 from ..ops.forward import forward_sim, pack_scalars
 from ..ops.interp import fractional_index
 from ..ops.regression import (
@@ -189,26 +192,77 @@ def _decision_geometry(dev: LsmcDeviceInputs, first: int, m: int, interp_kind: i
     return dg(j).to(torch.int32), dg(w), dg(econ.cost_npv), dg(econ.price_coeff)
 
 
-def decision_table(coeffs, vbar_next, geom_j, geom_w, cost, price) -> torch.Tensor:
+def decision_table(coeffs, vbar_next, geom_j, geom_w, cost, price, out=None) -> torch.Tensor:
     """The backward kernel's per-period table ``[D, G, B+2]``.
 
     Columns ``:B`` fold decision d's interpolation onto the next grid through
     the regression coefficients (``M_d @ coeffs'``, exact weights), column
     ``B`` is the shared affine offset ``M_d @ vbar_next - cost_npv`` and
     column ``B+1`` the coefficient on the spot price.  ``coeffs [B, G]``,
-    ``vbar_next [G]``, geometry and economics ``[D, G]``.
+    ``vbar_next [G]``, geometry and economics ``[D, G]``; ``out``, where
+    given, receives the table.
     """
     j, w = geom_j.long(), geom_w
     c_t = coeffs.T  # [G, B]
     cwa_x = c_t[j] * (1.0 - w)[..., None] + c_t[j + 1] * w[..., None]
     vbar_d = vbar_next[j] * (1.0 - w) + vbar_next[j + 1] * w
-    return torch.cat([cwa_x, (vbar_d - cost)[..., None], price[..., None]], dim=-1).contiguous()
+    return torch.cat([cwa_x, (vbar_d - cost)[..., None], price[..., None]], dim=-1, out=out)
 
 
 def _as_shards(x) -> list:
     """A per-sim tensor as the list of its shards: a list as it is, a tensor
     as a list of one."""
     return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _new_policy(like: torch.Tensor, m: int, B: int) -> tuple:
+    """Empty ``(coeffs [m, B, G], mus [m, B], sds [m, B], vbars [m, G])`` of
+    ``like``'s (``[G, S]``) dtype and device."""
+    G = like.shape[0]
+    return tuple(like.new_empty(shape) for shape in ((m, B, G), (m, B), (m, B), (m, G)))
+
+
+def _step_scalars(sim_vols: torch.Tensor, sim_drift: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's per-step scalars ``[m, 2, 1+F]``: row 0 the
+    step's drift and vols, row 1 the previous step's (step 0's own at 0)."""
+    this = torch.cat([sim_drift[:, None], sim_vols], dim=1)
+    return torch.stack([this, torch.cat([this[:1], this[:-1]])], dim=1)
+
+
+def _solve_latest(v_parts, f_parts, sim_vols, sim_drift, spec: BasisSpec):
+    """A span's latest decision step, which has no kernel partials yet,
+    solved directly from the value surface ``v_parts`` after it:
+    ``(coeffs [B, G], mu [B], sd [B], vbar [G])``."""
+    devices = [v.device for v in v_parts]
+    vbar = sims_mean(v_parts, 1)
+    designs = [design_matrix(spec, spot_from_factors(f[-1], vo[-1], dr[-1]), f[-1])
+               for f, vo, dr in zip(f_parts, replicate(devices, sim_vols),
+                                    replicate(devices, sim_drift))]
+    Xs, mu, sd = standardize_shards(designs)
+    coeffs = fit_continuation_shards(
+        Xs, [v.T - vb[None, :] for v, vb in zip(v_parts, replicate(devices, vbar))])
+    return coeffs, mu, sd, vbar
+
+
+def _glue(graws, praws, musd, vbar, geom, num_sims: int, table_out=None, musd_out=None):
+    """Everything the scan does between two K1 launches.
+
+    The shards' partials of the last launch (standardized with ``musd`` and
+    centred on ``vbar``, its operands) are summed; the new surface's
+    sim-mean comes from praw's ones row (centred row sums); the decision
+    step's exact regression is assembled from the partials, re-centred on
+    that mean; and K1's next table and ``[mu; sd]`` are built from it.
+    ``geom`` is the step's ``(j, w, cost, price)``; ``table_out`` and
+    ``musd_out`` receive the table and ``[mu; sd]`` where given.  Returns
+    ``(table, vbar, musd, (coeffs, mu, sd, vbar))``: K1's next operands and
+    the step's row of the policy.
+    """
+    B = musd.shape[1]
+    graw, praw = sum_shards(graws), sum_shards(praws)
+    vbar_new = vbar + praw[B] / num_sims
+    coeffs, mu, sd = assemble_regression(graw, praw, musd, vbar_new - vbar, num_sims)
+    table = decision_table(coeffs, vbar_new, *geom, out=table_out)
+    return table, vbar_new, torch.stack([mu, sd], out=musd_out), (coeffs, mu, sd, vbar_new)
 
 
 def backward_scan(
@@ -218,9 +272,11 @@ def backward_scan(
     sim_drift: torch.Tensor,  # [m]
     geometry,  # _decision_geometry(...) of the same m steps
     spec: BasisSpec,
+    out=None,
 ):
     """Reverse scan over ``m`` periods with the structure of the JAX
-    package's ``backward_scan_pallas``.
+    package's ``backward_scan_pallas``, each step's glue (:func:`_glue`)
+    run as it comes.
 
     The latest period's regression is solved directly (it has no kernel
     partials yet); every kernel launch then updates ``V`` for its period and
@@ -228,65 +284,152 @@ def backward_scan(
     assembled.  ``v_init`` and ``factors`` may be lists with one tensor per
     shard of the sims (``[G, S_i]``, ``[m, F, S_i]``, each on its shard's
     device; the rest lies on the first shard's): the kernel then runs per
-    shard and the partials and sim-means are sums over the shards.  Returns
-    ``(v_final [G, S] (per shard as v_init), coeffs [m, B, G], mus [m, B],
-    sds [m, B], vbars [m, G])``.
+    shard and the partials and sim-means are sums over the shards.  ``out``
+    is the ``(coeffs, mus, sds, vbars)`` to fill (new tensors when None).
+    Returns ``(v_final [G, S] (per shard as v_init), coeffs [m, B, G],
+    mus [m, B], sds [m, B], vbars [m, G])``.
     """
     v_parts, f_parts = _as_shards(v_init), _as_shards(factors)
     devices = [v.device for v in v_parts]
-    G = v_parts[0].shape[0]
     S = sum(v.shape[1] for v in v_parts)
     m = f_parts[0].shape[0]
-    B = spec.num_basis
-    geom_j, geom_w, cost, price = geometry
-    vols_prev = torch.cat([sim_vols[:1], sim_vols[:-1]], dim=0)
-    drift_prev = torch.cat([sim_drift[:1], sim_drift[:-1]], dim=0)
-    geom_j_r, geom_w_r = replicate(devices, geom_j), replicate(devices, geom_w)
-
-    def kernel_step(k, coeffs, mu, sd, vbar_next, v_next):
-        table = decision_table(coeffs, vbar_next, geom_j[k], geom_w[k], cost[k], price[k])
-        musd = torch.stack([mu, sd]).contiguous()
-        scal = torch.stack([
-            torch.cat([sim_drift[k:k + 1], sim_vols[k]]),
-            torch.cat([drift_prev[k:k + 1], vols_prev[k]]),
-        ]).contiguous()
-        outs = [backward_update(f[k], f[max(k - 1, 0)], v, t, vb, ms, gj[k], gw[k], sc, spec=spec)
-                for f, v, t, vb, ms, gj, gw, sc in zip(
-                    f_parts, v_next, replicate(devices, table),
-                    replicate(devices, vbar_next.contiguous()), replicate(devices, musd),
-                    geom_j_r, geom_w_r, replicate(devices, scal))]
-        graw, praw = sum_shards([o[1] for o in outs]), sum_shards([o[2] for o in outs])
-        # New sim-mean from praw's ones row (centred row sums).
-        return [o[0] for o in outs], vbar_next + praw[B] / S, graw, praw, musd
-
-    dtype, device = v_parts[0].dtype, devices[0]
-    coeffs_all = torch.empty((m, B, G), dtype=dtype, device=device)
-    mu_all = torch.empty((m, B), dtype=dtype, device=device)
-    sd_all = torch.empty_like(mu_all)
-    vbar_all = torch.empty((m, G), dtype=dtype, device=device)
-
-    # Latest period (k = m-1), solved directly.
-    vbar0 = sims_mean(v_parts, 1)
-    f_last = [f[m - 1] for f in f_parts]
-    designs = [design_matrix(spec, spot_from_factors(fl, vo[m - 1], dr[m - 1]), fl)
-               for fl, vo, dr in zip(f_last, replicate(devices, sim_vols),
-                                     replicate(devices, sim_drift))]
-    Xs, mu0, sd0 = standardize_shards(designs)
-    coeffs0 = fit_continuation_shards(
-        Xs, [v.T - vb[None, :] for v, vb in zip(v_parts, replicate(devices, vbar0))])
-    coeffs_all[m - 1], mu_all[m - 1], sd_all[m - 1], vbar_all[m - 1] = coeffs0, mu0, sd0, vbar0
-
-    v, vbar, graw, praw, musd = kernel_step(m - 1, coeffs0, mu0, sd0, vbar0, v_parts)
-    c_prev = vbar0
-    for k in range(m - 2, -1, -1):
-        # The partials were standardized with musd (period k+1's) and centred
-        # on c_prev; assemble period k's exact regression from them.
-        coeffs, mu, sd = assemble_regression(graw, praw, musd, vbar - c_prev, S)
-        coeffs_all[k], mu_all[k], sd_all[k], vbar_all[k] = coeffs, mu, sd, vbar
-        c_prev = vbar
-        v, vbar, graw, praw, musd = kernel_step(k, coeffs, mu, sd, vbar, v)
+    out = out or _new_policy(v_parts[0], m, spec.num_basis)
+    coeffs, mu, sd, vbar = _solve_latest(v_parts, f_parts, sim_vols, sim_drift, spec)
+    for dst, x in zip(out, (coeffs, mu, sd, vbar)):
+        dst[m - 1] = x
+    table = decision_table(coeffs, vbar, *(g[m - 1] for g in geometry))
+    musd = torch.stack([mu, sd])
+    geom_j, geom_w = (replicate(devices, g) for g in geometry[:2])
+    scal = replicate(devices, _step_scalars(sim_vols, sim_drift))
+    v = v_parts
+    for k in range(m - 1, -1, -1):
+        if k < m - 1:
+            # The partials were standardized with musd (period k+1's) and
+            # centred on vbar; assemble period k's exact regression from them.
+            table, vbar, musd, row = _glue(graws, praws, musd, vbar,
+                                           [g[k] for g in geometry], S)
+            for dst, x in zip(out, row):
+                dst[k] = x
+        outs = [backward_update(f[k], f[max(k - 1, 0)], vs, t, vb, ms, gj[k], gw[k], sc[k],
+                                spec=spec)
+                for f, vs, t, vb, ms, gj, gw, sc in zip(
+                    f_parts, v, replicate(devices, table), replicate(devices, vbar),
+                    replicate(devices, musd), geom_j, geom_w, scal)]
+        v = [o[0] for o in outs]
+        graws, praws = [o[1] for o in outs], [o[2] for o in outs]
     v = v if isinstance(v_init, (list, tuple)) else v[0]
-    return v, coeffs_all, mu_all, sd_all, vbar_all
+    return (v, *out)
+
+
+def _glue_graph(devices) -> bool:
+    """Whether a scan over shards on ``devices`` replays its glue as a CUDA
+    graph (:class:`_GlueGraph`): when every shard lies on one CUDA device.
+    CPU tensors, and a paths mesh over several devices, take
+    :func:`backward_scan`."""
+    return devices[0].type == "cuda" and all(d == devices[0] for d in devices)
+
+
+class _GlueGraph:
+    """The backward scan of one call with its glue (:func:`_glue`) as one
+    CUDA graph, captured at the call's first glue step and replayed at every
+    later one, of every span, on the current stream; K1 stays an eager
+    launch between replays, one a step.  The same torch operations as
+    :func:`backward_scan`'s, in the same order, so the results are its bit
+    for bit.
+
+    The graph's operands stay at fixed addresses for the call: K1's partials
+    (one buffer a shard, which K1 writes), K1's table, ``[mu; sd]`` and
+    sim-mean (which the graph reads and writes anew), the decision geometry
+    (the call's, or a streamed span's copied in once a span: ``rows`` steps)
+    and the call's policy tensors, which the graph fills a row a step.  The
+    decision step is a device-side index ``(row of the geometry, step in the
+    call)``, set once a span and stepped down by each replay.  Made per call
+    and dropped with it: no allocation outlives the call.  (Torch keeps the
+    free blocks of a dropped graph's memory pool cached, 4 MiB a call, until
+    it empties its cache: at ``torch.cuda.empty_cache()``, or when an
+    allocation finds no free device memory.)
+    """
+
+    def __init__(self, out, spec: BasisSpec, num_sims: int, rows: int):
+        self.out, self.spec, self.num_sims, self.rows = out, spec, num_sims, rows
+        self.geometry = None  # made at the first span, with the other operands
+        self.graph = None
+
+    def _operands(self, v_parts, geometry) -> None:
+        like, (_, D, G) = v_parts[0], geometry[0].shape
+        B = self.spec.num_basis
+        self.table = like.new_empty((D, G, B + 2))
+        self.vbar = like.new_empty((G,))
+        self.musd = like.new_empty((2, B))
+        self.partials = [backward_partials(v, D, B) for v in v_parts]
+        self.index = torch.zeros(2, dtype=torch.int64, device=like.device)
+        self.geometry = geometry if len(geometry[0]) == self.rows else tuple(
+            g.new_empty((self.rows, *g.shape[1:])) for g in geometry)
+
+    def scan(self, v_init, factors, sim_vols, sim_drift, geometry, at: int, first: int):
+        """:func:`backward_scan` of the call's decision steps ``first ..
+        first+m-1``, whose geometry is rows ``at .. at+m-1`` of ``geometry``,
+        writing the call's policy rows; returns ``v_final``."""
+        v_parts, f_parts = _as_shards(v_init), _as_shards(factors)
+        m = f_parts[0].shape[0]
+        coeffs, mu, sd, vbar = _solve_latest(v_parts, f_parts, sim_vols, sim_drift, self.spec)
+        for dst, x in zip(self.out, (coeffs, mu, sd, vbar)):
+            dst[first + m - 1] = x
+        if self.geometry is None:
+            self._operands(v_parts, geometry)
+        if self.geometry is not geometry:
+            for dst, g in zip(self.geometry, geometry):
+                dst[:m] = g[at:at + m]
+            at = 0
+        del geometry  # a streamed span's own, once copied in: freed before the scan
+        geom_j, geom_w = self.geometry[:2]
+        decision_table(coeffs, vbar, *(g[at + m - 1] for g in self.geometry), out=self.table)
+        torch.stack([mu, sd], out=self.musd)
+        self.vbar.copy_(vbar)
+        self.index[0].fill_(at + m - 2)
+        self.index[1].fill_(first + m - 2)
+        scal = _step_scalars(sim_vols, sim_drift)
+        v = v_parts
+        for k in range(m - 1, -1, -1):
+            if k < m - 1:
+                self._replay()
+            v = [launch_backward_update(f[k], f[max(k - 1, 0)], vs, self.table, self.vbar,
+                                        self.musd, geom_j[at + k], geom_w[at + k], scal[k],
+                                        self.spec, partials=p)[0]
+                 for f, vs, p in zip(f_parts, v, self.partials)]
+        return v if isinstance(v_init, (list, tuple)) else v[0]
+
+    def _step(self) -> None:
+        """One glue step on the fixed operands: what the graph records."""
+        G = self.vbar.shape[0]
+        sums = [reduce_partials(p, G) for p in self.partials]
+        geom = [g.index_select(0, self.index[:1])[0] for g in self.geometry]
+        _, vbar, _, row = _glue([s[0] for s in sums], [s[1] for s in sums], self.musd,
+                                self.vbar, geom, self.num_sims, self.table, self.musd)
+        for dst, x in zip(self.out, row):
+            dst.index_copy_(0, self.index[1:], x[None])
+        self.vbar.copy_(vbar)
+        self.index.sub_(1)
+
+    def _replay(self) -> None:
+        """Replay the glue step on the current stream, capturing it first (on
+        a side stream that waits for the current one: capture records and
+        runs nothing)."""
+        with torch.cuda.device(self.vbar.device):
+            if self.graph is None:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.stream(side):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self._step()
+                    finally:
+                        graph.capture_end()
+                self.graph = graph
+                active().count("glue_graph_captures")
+            self.graph.replay()
+        active().count("glue_graph_replays")
 
 
 def _current_period_step(v_next, dev: LsmcDeviceInputs, interp_kind, num_grid_points,
@@ -373,8 +516,10 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
     ``[m+1, F, S]`` or a :class:`StreamingFactorSource` of as many steps.
 
     The spans (:func:`_refine_spans`: ``num_chunks`` spans of a tensor, the
-    source's own of a source) are walked in reverse, each a
-    :func:`backward_scan` handed the previous span's value surface;
+    source's own of a source) are walked in reverse, each a scan handed the
+    previous span's value surface and writing its rows of the policy:
+    :class:`_GlueGraph`'s when every shard lies on one CUDA device
+    (:func:`_glue_graph`), else :func:`backward_scan`.
     ``after_span(progress)`` runs after each.
     Returns ``(backward_npv, cont_mean0 [G], coeffs [m,B,G], mus, sds, vbars)``.
     ``cont_mean0`` is the current-period mean continuation when ``val_first``
@@ -402,19 +547,37 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
 
     if m:
         spans = _refine_spans(m, num_chunks, reg.spans)
-        parts = []
+        policy = _new_policy(v[0], m, spec.num_basis)
+        # A materialised path set's geometry is made for every step at once;
+        # a streamed span's with the span, as its paths are.
+        whole = reg.spans is None
+        geometry = (_decision_geometry(dev, first, m, interp_kind, G, extra_decisions)
+                    if whole else None)
+
+        def span_geometry(a, b):  # the geometry holding the span's rows, and its first row
+            if whole:
+                return geometry, a
+            return _decision_geometry(dev, first + a, b - a, interp_kind, G, extra_decisions), 0
+
+        def scan_eagerly(v, factors, vols, drift, geometry, at, a):
+            rows = tuple(g[at:at + len(vols)] for g in geometry)
+            out = tuple(x[a:a + len(vols)] for x in policy)
+            return backward_scan(v, factors, vols, drift, rows, spec, out=out)[0]
+
+        graph = (_GlueGraph(policy, spec, reg.num_sims,
+                            m if whole else max(b - a for a, b in spans))
+                 if _glue_graph(reg.devices) else None)
+        scan = scan_eagerly if graph is None else graph.scan
         sw = active()
         sw.count("decision_steps", m)
         with sw.span("BackwardScan"):
             for i, (a, b) in enumerate(reversed(spans)):
-                geometry = _decision_geometry(dev, first + a, b - a, interp_kind, G,
-                                              extra_decisions)
-                v, *policy = backward_scan(
-                    v, reg.get(a, b), sim_vols[a:b], sim_drift[a:b], geometry, spec)
-                parts.insert(0, policy)
+                # A streamed span's geometry is made in the call, so that the
+                # scan holds its only reference.
+                v = scan(v, reg.get(a, b), sim_vols[a:b], sim_drift[a:b], *span_geometry(a, b), a)
                 if after_span is not None:
                     after_span(BACKWARD_PCNT_TIME * (i + 1) / len(spans))
-        coeffs, mus, sds, vbars = (torch.cat(x, dim=0) for x in zip(*parts))
+        coeffs, mus, sds, vbars = policy
     else:
         B = spec.num_basis
         coeffs = sim_vols.new_zeros((0, B, G))

@@ -90,10 +90,31 @@ def _persistent_grid(lib, device, S: int, D: int, B: int, dtype=torch.float32) -
     return _GRIDS[key]
 
 
-def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
-                          scal, spec: BasisSpec):
+def backward_partials(v_next: torch.Tensor, D: int, B: int) -> torch.Tensor:
+    """A buffer for the kernel's partials at ``v_next``'s shapes: one
+    ``[B+1, G + B+1]`` partial per block of its persistent grid (praw's
+    columns, then graw's)."""
+    from .csrc import kernels
+
+    G, S = v_next.shape
+    nblk = _persistent_grid(kernels(), v_next.device, S, D, B, v_next.dtype)
+    return torch.empty((nblk, B + 1, G + B + 1), dtype=v_next.dtype, device=v_next.device)
+
+
+def reduce_partials(partials: torch.Tensor, G: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(graw [B+1, B+1], praw [B+1, G])`` from the kernel's partials: a
+    fixed-order reduction over the blocks."""
+    sums = partials.sum(dim=0)
+    return sums[:, G:], sums[:, :G]
+
+
+def launch_backward_update(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
+                           scal, spec: BasisSpec, partials=None):
     """Launch ``backward_update_kernel`` (CUDA tensors only), its float32 or
-    its float64 instantiation by the dtype of ``v_next``."""
+    its float64 instantiation by the dtype of ``v_next``, writing its
+    partials into ``partials`` (:func:`backward_partials`; a new buffer
+    when None).  Returns ``(v_out [G, S], partials)``, the partials
+    unreduced (:func:`reduce_partials`)."""
     from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels, on_device
 
     F, S = factors.shape
@@ -111,9 +132,10 @@ def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom
     check_operand("geom_j", geom_j, (D, G), torch.int32)
     lib = kernels()
     nblk = _persistent_grid(lib, v_next.device, S, D, B, dtype)
+    if partials is None:
+        partials = backward_partials(v_next, D, B)
+    check_operand("partials", partials, (nblk, B + 1, G + B + 1), dtype)
     v_out = torch.empty_like(v_next)
-    # One [B+1, G + B+1] partial per block: praw's columns, then graw's.
-    partials = torch.empty((nblk, B + 1, G + B + 1), dtype=dtype, device=v_next.device)
     spot_pow, fac_pow = basis_arrays(spec)
     launch = lib.backward_update_launch if dtype == torch.float32 else \
         lib.backward_update_f64_launch
@@ -127,8 +149,16 @@ def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom
         )
     check_launch("backward_update", err)
     count_launch("backward_update")
-    sums = partials.sum(dim=0)  # a fixed-order reduction over the blocks
-    return v_out, sums[:, G:], sums[:, :G]
+    return v_out, partials
+
+
+def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
+                          scal, spec: BasisSpec):
+    """:func:`launch_backward_update` and :func:`reduce_partials`:
+    ``(v_out, graw, praw)``."""
+    v_out, partials = launch_backward_update(factors, factors_prev, v_next, table, vbar, musd,
+                                             geom_j, geom_w, scal, spec)
+    return (v_out, *reduce_partials(partials, v_next.shape[0]))
 
 
 def backward_update(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w, scal,

@@ -15,8 +15,12 @@ On the CPU, at 256 paths of the benchmark's daily case
   at 2,000 paths adds 8 panel fetches (six fields, two spot panels) and, on
   a card, one event wait a ``Progress`` span (40).  ``uploads`` counts the
   host constants uploaded without a wait: 59 a valuation, 24 a fit, 29 a
-  reprice, 154 with panels.  Each sum is the number of waits the call made
-  while uploads waited too: 63, 24, 30 and 206.  The same sites count on
+  reprice, 78 with panels (154 while each of the 20 progress spans made its
+  own decision geometry, uploading its four weight rows; one geometry a
+  call since the backward glue became a CUDA graph).  Each sum is the
+  number of waits the call would make if every upload waited, as uploads
+  did before they were pinned: 63, 24, 30 and 130 (206 with 154 uploads).
+  The same sites count on
   the CPU as on a card (the plain versions of the kernels upload what the
   launchers upload), so these are the card's numbers; the ``cuda`` cases
   below check them there;
@@ -68,9 +72,9 @@ SEED = 1601
 CFG = cases.load_json("configs", "daily_ratchet_3f")
 VALUE_SYNCS, FIT_SYNCS, REPRICE_SYNCS = 4, 0, 1
 VALUE_UPLOADS, FIT_UPLOADS, REPRICE_UPLOADS = 59, 24, 29
-PANELS_SIMS, PANELS_SYNCS, PANELS_UPLOADS, PROGRESS_SPANS = 2000, 12, 154, 40
-# The waits of each call while every upload waited: the sums of the two counters.
-VALUE_WAITS_BEFORE, FIT_WAITS_BEFORE, REPRICE_WAITS_BEFORE, PANELS_WAITS_BEFORE = 63, 24, 30, 206
+PANELS_SIMS, PANELS_SYNCS, PANELS_UPLOADS, PROGRESS_SPANS = 2000, 12, 78, 40
+# The waits of each call if every upload waited: the sums of the two counters.
+VALUE_WAITS_BEFORE, FIT_WAITS_BEFORE, REPRICE_WAITS_BEFORE, PANELS_WAITS_BEFORE = 63, 24, 30, 130
 DECISION_STEPS = 340
 
 VALUE_TREE = {"All": None, "Compile": "All", "Intrinsic": "All", "DeviceInputs": "All",
@@ -183,7 +187,7 @@ def test_panels_and_progress_counts(panels_sw):
 
 @pytest.mark.parametrize("which", ["value", "fit", "reprice", "panels"])
 def test_every_wait_that_went_is_an_upload(which, value_sw, policy_sws, panels_sw):
-    """A call's waits and uploads add up to the waits it made while every
+    """A call's waits and uploads add up to the waits it would make if every
     upload waited: no fetch or event wait went, and no upload was added."""
     sw, before = {"value": (value_sw, VALUE_WAITS_BEFORE),
                   "fit": (policy_sws[0], FIT_WAITS_BEFORE),
@@ -344,7 +348,8 @@ def _hand_trace(entry: str):
     for off in (100_000, 550_000):
         events += [((off + 70_000) / 1e3, (off + 90_000) / 1e3, "Memcpy HtoD"),
                    ((off + 170_000) / 1e3, (off + 380_000) / 1e3, "backward_update_kernel")]
-    counters = [{"host_syncs": 1, "uploads": 3, "decision_steps": 4}] * 2
+    counters = [{"host_syncs": 1, "uploads": 3, "decision_steps": 4, "glue_graph_captures": 1,
+                 "glue_graph_replays": 3}] * 2
     return calls, events, counters, 0, 1_000_000
 
 
@@ -376,8 +381,10 @@ def test_readings_are_finite(entry):
     for k in keys:
         assert math.isfinite(got[k]) and got[k] >= 0, k
     assert (got["host_syncs"], got["uploads"]) == (1, 3)
+    assert (got["glue_graph_captures"], got["glue_graph_replays"]) == (1, 3)
     if entry == "value":
         assert got["backward_step_host_us"] == pytest.approx(140e-6 * 1e6 / 4)
+        assert got["k1_step_device_us"] == pytest.approx(2 * 210 / 8)
         assert got["front_end_idle_s"] == pytest.approx(80e-6)
     else:
         assert got["triggers_s"] == pytest.approx(140e-6)

@@ -12,14 +12,18 @@ without one) and keeps each call's spans and counters
 (default ``chiprun_out/trace_spans_<cell>.json``):
 
 - per span name its time and self time per call, and the counters
-  (``host_syncs``, ``uploads``, ``decision_steps``; where path sets stream,
-  ``stream_checkpoints`` and ``streamed_spans``, beside the path kernel's
-  launches a call counted on the device, ``k3_launches``);
+  (``host_syncs``, ``uploads``, ``decision_steps``; where the backward
+  scan's glue is a CUDA graph, ``glue_graph_captures`` and
+  ``glue_graph_replays``; where path sets stream, ``stream_checkpoints`` and
+  ``streamed_spans``, beside the path kernel's launches a call counted on
+  the device, ``k3_launches``);
 - the device's idle time under each innermost span (a ``Wait`` or ``Sync``
   named with its parent; time outside every call: ``outside the program``),
   which adds up to the traced window's idle time;
 - each of the ten longest idle gaps with the span most of it falls under;
-- the readings of the span metrics PERF.md section 7 proposes.
+- the readings of the span metrics PERF.md section 7 proposes, with the
+  backward scan's host time a decision step (``BackwardScan``) beside K1's
+  device time a step.
 
 Spans are timed on ``time.time_ns()``, the clock of the profiler's device
 events, so both are compared as they are.  Nothing here changes the
@@ -40,6 +44,7 @@ ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from portbench.yardstick import is_k1  # noqa: E402
 from storage_tpu_torch.utils.profiling import Stopwatches, self_times_ns  # noqa: E402
 
 OUTSIDE = "outside the program"
@@ -179,9 +184,13 @@ def readings(entry: str, calls, counters, events, t0: int, t1: int) -> Dict[str,
         out.update(stream_checkpoints=per_call("stream_checkpoints"),
                    streamed_spans=per_call("streamed_spans"),
                    stream_checkpoints_s=t("StreamCheckpoints"), stream_span_s=t("StreamSpan"))
+    if any("glue_graph_replays" in c for c in counters):  # the glue as a CUDA graph
+        out.update(glue_graph_captures=per_call("glue_graph_captures"),
+                   glue_graph_replays=per_call("glue_graph_replays"))
     steps = sum(c.get("decision_steps", 0) for c in counters)
     if steps:
         out["backward_step_host_us"] = 1e6 * t("BackwardScan") * n / steps
+        out["k1_step_device_us"] = sum(e - s for s, e, name in events if is_k1(name)) / steps
     if entry == "value":
         out.update(compile_s=t("Compile"), intrinsic_s=t("Intrinsic"),
                    assembly_s=t("Assembly"),
@@ -275,6 +284,12 @@ def main(argv=None) -> int:
         print(f"  idle {name:<34} {v:.6f} s")
     for name, v in res["named_gaps"]:
         print(f"  gap  {name:<34} {v:.6f} s")
+    got = res["readings"]
+    if "backward_step_host_us" in got:
+        print(f"  backward step: host {got['backward_step_host_us']:.3f} us (BackwardScan), "
+              f"K1 device {got['k1_step_device_us']:.3f} us; glue graph captures "
+              f"{got.get('glue_graph_captures', 0)}, replays {got.get('glue_graph_replays', 0)} "
+              "a call")
     print("  readings " + json.dumps(res["readings"]))
     return 0
 
