@@ -150,6 +150,7 @@ NUM_SIMS = 1_000_000
 SEED = 13
 COMPARE_SIMS = 65_536
 CAPTURE_LAUNCH = 170  # the backward launch recorded: a mid-horizon period
+D5_TABLE_RTOL = 1e-6  # the recorded D=3 table against one rebuilt from the policy
 # The JAX package's record for this case and seed (round-5 TPU run, same
 # threefry paths): NPV 78,373 (its kernels quantize, moving NPV by ~3e-5),
 # intrinsic 40,976.
@@ -474,69 +475,38 @@ def phase_build():
     print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
 
 
-def _step_by_step(devices) -> bool:
-    """The backward scan's glue run step by step (``lsmc._glue_graph``'s
-    stand-in) in the runs that record K1's launches: each records K1's own
-    operands, where the graph's scan hands K1 buffers that its replays
-    overwrite."""
-    return False
-
-
 def phase_capture():
-    """One 1M-path valuation recording one backward and the forward launch."""
+    """One 1M-path valuation recording one backward and the forward launch,
+    the path sets, and the backward program's device inputs and policy."""
     import storage_tpu_torch as tt
     from storage_tpu_torch.engines import lsmc
 
-    captured = {}
-    from storage_tpu_torch import valuation
+    real = lsmc._backward_program
+    programs = []
 
-    real = (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs,
-            lsmc._glue_graph)
-    real_sim = valuation.simulate_factor_paths
-    calls = {"bwd": 0, "table": 0}
-    captured["sim"] = []
+    def program(*args, **kw):  # its device inputs and what it returns
+        programs.append((args[3], real(*args, **kw)))
+        return programs[-1][1]
 
-    def record_sim(coeffs, num_sims, **kw):  # once per path set: regression, valuation
-        captured["sim"].append((coeffs, num_sims, kw))
-        return real_sim(coeffs, num_sims, **kw)
-
-    def record_bwd(*args, **kw):
-        calls["bwd"] += 1
-        if calls["bwd"] == CAPTURE_LAUNCH:
-            captured["bwd"] = (args, kw)
-        return real[0](*args, **kw)
-
-    def record_fwd(*args, **kw):
-        captured["fwd"] = (args, kw)
-        return real[1](*args, **kw)
-
-    def record_table(*args, **kw):  # one table per backward launch, built just before it
-        calls["table"] += 1
-        if calls["table"] == CAPTURE_LAUNCH:
-            captured["table"] = args
-        return real[2](*args, **kw)
-
-    def record_dev(*args, **kw):
-        captured["dev"] = real[3](*args, **kw)
-        return captured["dev"]
-
-    (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs,
-     lsmc._glue_graph) = (record_bwd, record_fwd, record_table, record_dev, _step_by_step)
-    valuation.simulate_factor_paths = record_sim
+    lsmc._backward_program = program
     try:
-        t0 = time.perf_counter()
-        res = value_case(tt, NUM_SIMS, SEED, device="cuda")
-        wall = time.perf_counter() - t0
+        with _recording({"bwd": ("K1", "float32", CAPTURE_LAUNCH),
+                         "fwd": ("K2", "float32", 1)}) as rec:
+            t0 = time.perf_counter()
+            res = value_case(tt, NUM_SIMS, SEED, device="cuda")
+            wall = time.perf_counter() - t0
     finally:
-        (lsmc.backward_update, lsmc.forward_sim, lsmc.decision_table, lsmc.device_inputs,
-         lsmc._glue_graph) = real
-        valuation.simulate_factor_paths = real_sim
-    check(all(k in captured for k in ("bwd", "fwd", "table", "dev"))
-          and len(captured["sim"]) == PATH_SETS, "capture run did not reach every kernel")
-    captured["num_bwd"] = calls["bwd"]
+        lsmc._backward_program = real
+    num_bwd = rec.calls.get(("K1", "float32"), 0)
+    check(sorted(rec.recorded) == ["bwd", "fwd"] and rec.calls.get(("K2", "float32")) == 1
+          and len(rec.path_sets) == PATH_SETS and len(programs) == 1,
+          "capture run did not reach every kernel")
+    ((dev, (_, _, coeffs, _, _, vbars)),) = programs
+    row = num_bwd - CAPTURE_LAUNCH  # the recorded launch's row of the policy
     print(f"[capture] warm-up valuation {wall:.3f} s, NPV {res.npv:.4f}, "
-          f"{calls['bwd']} backward launches")
-    return captured
+          f"{num_bwd} backward launches")
+    return dict(rec.recorded, sim=rec.path_sets, dev=dev, coeffs=coeffs[row], vbar=vbars[row],
+                num_bwd=num_bwd)
 
 
 def _check_backward(label, args, kw, min_tiles_per_block=1):
@@ -560,7 +530,12 @@ def _check_backward(label, args, kw, min_tiles_per_block=1):
     check(tiles_per_block >= min_tiles_per_block,
           f"{label}: {S} sims give {blocks} blocks {tiles_per_block} tiles each, "
           f"fewer than {min_tiles_per_block}")
-    v_k, graw_k, praw_k = backward._backward_update_cuda(*args, **kw)
+
+    def kernel():  # K1 and the reduction of its partials
+        v_out, partials = backward._backward_update_cuda(*args, **kw)
+        return (v_out, *backward.reduce_partials(partials, G))
+
+    v_k, graw_k, praw_k = kernel()
     v_r, graw_r, praw_r = backward.backward_update_reference(*args, **kw)
     torch.cuda.synchronize()
     scale = float(v_r.abs().max())
@@ -572,7 +547,7 @@ def _check_backward(label, args, kw, min_tiles_per_block=1):
     max_ok = float(diff[~flipped].max()) if n_flipped < flipped.numel() else 0.0
     e_graw, e_praw = rel_err(graw_k, graw_r), rel_err(praw_k, praw_r)
     del v_k, v_r, diff, flipped
-    ms = cuda_ms(lambda: backward._backward_update_cuda(*args, **kw), 20)
+    ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(lambda: backward.backward_update_reference(*args, **kw), 3)
     # The reduction alone as one library call (the port never calls it).
     xr = torch.randn(B + 1, S, device=v_next.device, dtype=v_next.dtype)
@@ -603,18 +578,23 @@ def phase_backward(captured):
 
 def d5_args(captured):
     """The recorded K1 launch's operands with the decision geometry and table
-    of ``extra_decisions=1`` (D = 5), built as the engine builds them."""
+    of ``extra_decisions=1`` (D = 5), built as the engine builds them from
+    the policy's row of the launch's decision step."""
+    import torch
     from storage_tpu_torch.engines import lsmc
     from storage_tpu_torch.ops.ratchets import INTERP_LINEAR
 
     args = captured["bwd"][0]
-    coeffs, vbar_next = captured["table"][:2]
-    dev = captured["dev"]
+    coeffs, vbar_next, dev = captured["coeffs"], captured["vbar"], captured["dev"]
     G = args[2].shape[0]
     period = 1 + captured["num_bwd"] - CAPTURE_LAUNCH  # the launch's decision step
-    geometry = lsmc._decision_geometry(dev, period, 1, INTERP_LINEAR, G, 0)
-    check(bool((geometry[0][0] == args[6]).all()) and bool((geometry[1][0] == args[7]).all()),
+    geometry = [g[0] for g in lsmc._decision_geometry(dev, period, 1, INTERP_LINEAR, G, 0)]
+    check(bool((geometry[0] == args[6]).all()) and bool((geometry[1] == args[7]).all()),
           "K1 D=5: the recorded launch's D=3 geometry could not be rebuilt")
+    table_err = rel_err(lsmc.decision_table(coeffs, vbar_next, *geometry), args[3])
+    check(torch.equal(vbar_next, args[4]) and table_err <= D5_TABLE_RTOL,
+          f"K1 D=5: the policy's row does not rebuild the recorded launch's table "
+          f"(rel {table_err:.2e})")
     j, w, cost, price = (g[0] for g in lsmc._decision_geometry(dev, period, 1, INTERP_LINEAR,
                                                                 G, 1))
     table = lsmc.decision_table(coeffs, vbar_next, j, w, cost, price)
@@ -825,10 +805,11 @@ def phase_path_sim(captured):
     from storage_tpu_torch.models import simulation
 
     max_err = 0.0
-    for (coeffs, num_sims, kw), name in zip(captured["sim"], ("regression", "valuation")):
-        check(not kw.get("antithetic"), "the main path is not antithetic")
+    for (coeffs, num_sims, key, antithetic, _), name in zip(captured["sim"],
+                                                            ("regression", "valuation")):
+        check(not antithetic, "the main path is not antithetic")
         max_err = max(max_err, _compare_paths(f"K3 path_sim {name} set", coeffs, num_sims,
-                                              kw["key"], False))
+                                              key, False))
     rng = np.random.default_rng(SEED)
     for F in (1, 2, 3, 4):
         n = SMALL_PATH_STEPS
@@ -837,12 +818,12 @@ def phase_path_sim(captured):
             vols=np.ones((n, F)), log_fwd_drift=np.zeros(n))
         max_err = max(max_err, _compare_paths(f"K3 path_sim F={F}", small, SMALL_PATH_SIMS,
                                               simulation.prng_key(SEED + F), True))
-    coeffs, num_sims, kw = captured["sim"][0]
+    coeffs, num_sims, key, _, _ = captured["sim"][0]
     n, F = coeffs.decay.shape
     ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
-        coeffs, num_sims, kw["key"], False, "cuda"), 5)
+        coeffs, num_sims, key, False, "cuda"), 5)
     plain_ms = cuda_ms(lambda: simulation.simulate_factor_paths_reference(
-        coeffs, num_sims, kw["key"], False, "cuda"), 1)
+        coeffs, num_sims, key, False, "cuda"), 1)
     bound_ms, bound_by = k3_bound(n, num_sims, F, num_sims)
     print(f"[K3 path_sim] {n} steps x {F} factors x {num_sims} sims: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}")
@@ -1084,8 +1065,8 @@ def phase_path_sim_stream(captured, hourly_coeffs):
     from storage_tpu_torch.models import simulation
     from storage_tpu_torch.valuation import _stream_span_length
 
-    for (coeffs, num_sims, kw), name in zip(captured["sim"], ("regression", "valuation")):
-        _check_stream(f"K3 stream {name} set", coeffs, num_sims, kw["key"], False,
+    for (coeffs, num_sims, key, _, _), name in zip(captured["sim"], ("regression", "valuation")):
+        _check_stream(f"K3 stream {name} set", coeffs, num_sims, key, False,
                       STREAM_CHECK_EVERY)
     rng = np.random.default_rng(SEED)
     for F in (1, 2, 3, 4):
@@ -1288,8 +1269,8 @@ def phase_hourly():
     lsmc._check_forward_health = counted_health
     try:
         with _path_budget(HOURLY_BUDGET):
-            with _recording(HOURLY_CAPTURE_LAUNCH, _stream_counts(
-                    n_sim_steps, HOURLY_SIMS, 3, HOURLY_BUDGET)[0]["forward_sim"]) as recorded:
+            with _streamed_recording("float32", HOURLY_CAPTURE_LAUNCH, _stream_counts(
+                    n_sim_steps, HOURLY_SIMS, 3, HOURLY_BUDGET)[0]["forward_sim"]) as rec:
                 t0 = time.perf_counter()
                 warm = value_hourly(tt, HOURLY_SIMS, 12, device="cuda")
                 torch.cuda.synchronize()
@@ -1333,62 +1314,103 @@ def phase_hourly():
     # of `every` steps and the tail) against their plain versions, with the
     # flip bounds of the daily case.  A block of either grid walks one or two
     # tiles at this width.
-    k1, k2_span, k2_tail = _check_recorded("hourly", recorded, n_steps, every, spans, 1)
+    k1, k2_span, k2_tail = _check_recorded("hourly", rec.recorded, n_steps, every, spans, 1)
     return counts, {"hourly": k1}, {"hourly_span": k2_span, "hourly_tail": k2_tail}
 
 
 class _recording:
-    """While a run makes them, keep on the host the operands of its
-    ``backward_launch``-th K1 launch ("K1"), of the K2 launch of its middle
-    span ("K2 span", entered with the inventories the spans before it left)
-    and of its last ("K2 tail"), of a streamed run with ``fwd_spans`` forward
-    launches; and the parameters of its streaming sources ("sources")."""
+    """While it is open, watch what the engine hands its kernels: count each
+    K1 (``lsmc.backward_update``), K2 (``lsmc.forward_sim``) and K3 launch
+    by element type in ``calls`` (``{(kernel, dtype): n}``, a path set
+    counting as one K3 launch), keep each path set's ``(coeffs, num_sims,
+    key, antithetic, every)`` in ``path_sets`` (``every`` None where it is
+    drawn whole), and keep in ``recorded[label]`` the launch that
+    ``wanted[label] = (kernel, dtype, n)`` names, its kernel's ``n``-th in
+    ``dtype``: its operands ``(args, kw)``, copied at call time to ``to``
+    (their own device where None), since the backward scan's steps
+    overwrite K1's table, ``vbar`` and ``[mu; sd]`` in place (K1's partials
+    buffer left out); a path set's first four fields.  Path sets are seen
+    where ``draws_from`` (default ``storage_tpu_torch.valuation``) calls
+    ``path_sim``: ``simulate_factor_paths``, or ``StreamingFactorSource``
+    in a streamed run.  Entered again, it counts on."""
 
-    def __init__(self, backward_launch, fwd_spans):
-        self.wanted = {"bwd": {backward_launch: "K1"},
-                       "fwd": {fwd_spans // 2 + 1: "K2 span", fwd_spans: "K2 tail"}}
-        self.recorded = {"sources": []}
+    def __init__(self, wanted, to=None, draws_from=None, path_sim="simulate_factor_paths"):
+        self.wanted, self.to, self.draws_from, self.path_sim = wanted, to, draws_from, path_sim
+        self.recorded, self.calls, self.path_sets = {}, {}, []
 
     def __enter__(self):
+        import inspect
         from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource,
-                     lsmc._glue_graph)
-        calls, recorded = {"bwd": 0, "fwd": 0}, self.recorded
+        self.draws_from = self.draws_from or valuation
+        self.real = (lsmc.backward_update, lsmc.forward_sim,
+                     getattr(self.draws_from, self.path_sim))
+        signature = inspect.signature(self.real[2])
 
-        def recording(kind, real):
+        def note(kernel, dtype, operands):
+            key = (kernel, str(dtype).split(".")[-1])
+            self.calls[key] = self.calls.get(key, 0) + 1
+            for label, want in self.wanted.items():
+                if want == (*key, self.calls[key]):
+                    self.recorded[label] = operands()
+
+        def launching(kernel, tensor_arg, real):
             def call(*args, **kw):
-                calls[kind] += 1
-                if calls[kind] in self.wanted[kind]:
-                    recorded[self.wanted[kind][calls[kind]]] = (tuple(a.cpu() for a in args), kw)
+                note(kernel, args[tensor_arg].dtype, lambda: (
+                    tuple(a.to(self.to or a.device, copy=True) for a in args),
+                    {k: v for k, v in kw.items() if k != "partials"}))
                 return real(*args, **kw)
             return call
 
-        class Source(self.real[2]):
-            def prepare(self):
-                recorded["sources"].append(
-                    (self._coeffs, self.num_sims, self._key, self.antithetic, self.every))
-                return super().prepare()
+        def drawing(*args, **kw):
+            out = self.real[2](*args, **kw)
+            bound = signature.bind(*args, **kw)
+            bound.apply_defaults()
+            a = bound.arguments
+            path_set = (a["coeffs"], a["num_sims"], a["key"], a["antithetic"],
+                        getattr(out, "every", None))
+            self.path_sets.append(path_set)
+            note("K3", a["dtype"], lambda: path_set[:4])
+            return out
 
-        lsmc.backward_update, lsmc.forward_sim = (recording("bwd", self.real[0]),
-                                                  recording("fwd", self.real[1]))
-        lsmc._glue_graph = _step_by_step
-        valuation.StreamingFactorSource = Source
-        return recorded
+        lsmc.backward_update = launching("K1", 2, self.real[0])
+        lsmc.forward_sim = launching("K2", 0, self.real[1])
+        setattr(self.draws_from, self.path_sim, drawing)
+        return self
 
     def __exit__(self, *exc):
-        from storage_tpu_torch import valuation
         from storage_tpu_torch.engines import lsmc
 
-        (lsmc.backward_update, lsmc.forward_sim, valuation.StreamingFactorSource,
-         lsmc._glue_graph) = self.real
+        lsmc.backward_update, lsmc.forward_sim = self.real[:2]
+        setattr(self.draws_from, self.path_sim, self.real[2])
+
+
+def _streamed_recording(dtype, backward_launch, fwd_spans):
+    """A :class:`_recording` of a streamed run with ``fwd_spans`` forward
+    launches, kept on the host: its ``backward_launch``-th K1 launch ("K1"),
+    the K2 launch of its middle span ("K2 span", entered with the
+    inventories the spans before it left) and of its last ("K2 tail"), and
+    its streaming sources."""
+    return _recording({"K1": ("K1", dtype, backward_launch),
+                       "K2 span": ("K2", dtype, fwd_spans // 2 + 1),
+                       "K2 tail": ("K2", dtype, fwd_spans)},
+                      to="cpu", path_sim="StreamingFactorSource")
+
+
+def _first_launches(backward_launch, dtypes=("float32", "float64")):
+    """``wanted`` of a :class:`_recording` for each of ``dtypes``: the
+    ``backward_launch``-th K1 launch, the first K2 launch and the first path
+    set, under ``(kernel, dtype)``."""
+    return {(kernel, dtype): (kernel, dtype, n) for dtype in dtypes
+            for kernel, n in (("K1", backward_launch), ("K2", 1), ("K3", 1))}
 
 
 def _check_recorded(label, recorded, n_steps, every, spans, min_tiles_per_block):
     """K1 and K2 against their plain versions on the launches a
-    :class:`_recording` kept, moved back to the card, and timed there."""
-    check(sorted(recorded) == ["K1", "K2 span", "K2 tail", "sources"],
+    :func:`_streamed_recording` kept, moved back to the card, and timed
+    there."""
+    check(sorted(recorded) == ["K1", "K2 span", "K2 tail"],
           f"the {label} run recorded {sorted(recorded)}")
 
     def on_card(name):
@@ -1553,7 +1575,7 @@ def phase_f64_main(main_npv, main_intrinsic):
         setattr(mod, name, counting(name, fn))
     try:
         with _path_budget(DEFAULT_PATH_BUDGET):
-            with _recording(CAPTURE_LAUNCH, fwd_spans) as recorded:
+            with _streamed_recording("float64", CAPTURE_LAUNCH, fwd_spans) as rec:
                 t0 = time.perf_counter()
                 first = value_case(tt, NUM_SIMS, SEED, device="cuda", dtype=torch.float64)
                 torch.cuda.synchronize()
@@ -1597,13 +1619,12 @@ def phase_f64_main(main_npv, main_intrinsic):
         check(abs(run.npv / PORT_NPV_F64 - 1.0) <= PORT_NPV_F64_RTOL,
               f"float64 NPV {run.npv} outside the port's float64 record {PORT_NPV_F64} "
               f"+- {PORT_NPV_F64_RTOL}")
-    check(len(recorded["sources"]) == PATH_SETS
-          and all(src[4] == every for src in recorded["sources"]),
-          f"the recording run streamed {len(recorded['sources'])} path sets")
-    return counts, recorded, every, spans, peak
+    check(len(rec.path_sets) == PATH_SETS and all(src[4] == every for src in rec.path_sets),
+          f"the recording run streamed {len(rec.path_sets)} path sets")
+    return counts, rec, every, spans, peak
 
 
-def phase_f64_kernels(recorded, every, spans):
+def phase_f64_kernels(rec, every, spans):
     """The float64 kernels against their plain float64 versions on what
     f64_main's recording run kept, each timed beside its float64 bound: K1 on
     its mid-horizon launch, K2 on the middle span's and the tail's launches;
@@ -1622,13 +1643,14 @@ def phase_f64_kernels(recorded, every, spans):
     from storage_tpu_torch.models import simulation
 
     f64 = torch.float64
+    recorded, sources = rec.recorded, rec.path_sets
     check(recorded["K1"][0][2].dtype == f64 and recorded["K2 span"][0][0].dtype == f64,
           "the float64 run recorded operands of another dtype")
-    n_steps = recorded["sources"][0][0].decay.shape[0]
+    n_steps = sources[0][0].decay.shape[0]
     k1, k2_span, k2_tail = _check_recorded("f64", recorded, n_steps, every, spans, 2)
     max_err = 0.0
     for (coeffs, num_sims, key, antithetic, src_every), name in zip(
-            recorded["sources"], ("regression", "valuation")):
+            sources, ("regression", "valuation")):
         check(not antithetic, "the main path is not antithetic")
         max_err = max(max_err, _compare_paths(f"K3 path_sim f64 {name} set", coeffs, num_sims,
                                               key, False, f64, steps=F64_PLAIN_STEPS))
@@ -1643,7 +1665,7 @@ def phase_f64_kernels(recorded, every, spans):
         max_err = max(max_err, _compare_paths(f"K3 path_sim f64 F={F}", small, SMALL_PATH_SIMS,
                                               key, True, f64))
         _check_stream(f"K3 stream f64 F={F}", small, SMALL_PATH_SIMS, key, True, 16, f64)
-    coeffs, num_sims, key, _, src_every = recorded["sources"][0]
+    coeffs, num_sims, key, _, src_every = sources[0]
     n, F = coeffs.decay.shape
     ms = cuda_ms(lambda: simulation._simulate_factor_paths_cuda(
         coeffs, num_sims, key, False, "cuda", f64), 5)
@@ -1687,51 +1709,6 @@ class _plain_calls:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
-
-
-class _shard_recording:
-    """While a mesh run makes them, keep on the host the operands of shard
-    ``shard``'s K1 launch at period launch ``backward_launch`` and of its
-    first K2 launch, and the parameters of the path-set simulations."""
-
-    def __init__(self, shards, shard, backward_launch):
-        self.shards, self.shard, self.backward_launch = shards, shard, backward_launch
-        self.recorded = {"sims": []}
-
-    def __enter__(self):
-        from storage_tpu_torch import valuation
-        from storage_tpu_torch.engines import lsmc
-
-        self.real = (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths,
-                     lsmc._glue_graph)
-        calls, recorded = {"bwd": 0, "fwd": 0}, self.recorded
-        wanted = {"bwd": (self.backward_launch - 1) * self.shards + self.shard + 1,
-                  "fwd": self.shard + 1}
-
-        def recording(kind, label, real):
-            def call(*args, **kw):
-                calls[kind] += 1
-                if calls[kind] == wanted[kind]:
-                    recorded[label] = (tuple(a.cpu() for a in args), kw)
-                return real(*args, **kw)
-            return call
-
-        def record_sim(coeffs, num_sims, **kw):
-            recorded["sims"].append((coeffs, num_sims, kw["key"], kw["antithetic"]))
-            return self.real[2](coeffs, num_sims, **kw)
-
-        lsmc.backward_update = recording("bwd", "K1", self.real[0])
-        lsmc.forward_sim = recording("fwd", "K2", self.real[1])
-        lsmc._glue_graph = _step_by_step
-        valuation.simulate_factor_paths = record_sim
-        return recorded
-
-    def __exit__(self, *exc):
-        from storage_tpu_torch import valuation
-        from storage_tpu_torch.engines import lsmc
-
-        (lsmc.backward_update, lsmc.forward_sim, valuation.simulate_factor_paths,
-         lsmc._glue_graph) = self.real
 
 
 def _check_window(label, coeffs, num_sims, key, antithetic, window, dtype=None, steps=None,
@@ -1879,7 +1856,10 @@ def phase_mesh(mesh, main, f64_main):
     times64 = {k: v * shards for k, v in f64_counts.items()}
     shard = shards - 1  # the last shard's launches are held against the plain versions
     with _plain_calls() as plain_calls:
-        with _shard_recording(shards, shard, CAPTURE_LAUNCH) as recorded:
+        # The last shard's K1 launch at period launch CAPTURE_LAUNCH (each
+        # period launches K1 once a shard, in shard order) and its first K2.
+        with _recording({"K1": ("K1", "float32", (CAPTURE_LAUNCH - 1) * shards + shard + 1),
+                         "K2": ("K2", "float32", shard + 1)}, to="cpu") as rec:
             t0 = time.perf_counter()
             first = value_case(tt, NUM_SIMS, SEED, device="cuda", mesh=mesh)
             first_wall = time.perf_counter() - t0
@@ -1902,8 +1882,9 @@ def phase_mesh(mesh, main, f64_main):
           f"mesh intrinsic {res.intrinsic_npv} vs one device {main_intrinsic}")
     check(peak <= MESH_PEAK_RATIO * main_peak and peak64 <= MESH_PEAK_RATIO * f64_peak,
           f"mesh peaks {peak} / {peak64} B against one device's {main_peak} / {f64_peak} B")
-    check(sorted(recorded) == ["K1", "K2", "sims"] and len(recorded["sims"]) == PATH_SETS,
-          f"the mesh recording run kept {sorted(recorded)}")
+    recorded = rec.recorded
+    check(sorted(recorded) == ["K1", "K2"] and len(rec.path_sets) == PATH_SETS,
+          f"the mesh recording run kept {sorted(recorded)} and {len(rec.path_sets)} path sets")
 
     def on_card(name):
         args, kw = recorded.pop(name)
@@ -1919,8 +1900,8 @@ def phase_mesh(mesh, main, f64_main):
     windows = mesh.windows(NUM_SIMS)
     window = windows[shard]
     max_err = 0.0
-    for (coeffs, num_sims, key, antithetic), name in zip(recorded["sims"],
-                                                         ("regression", "valuation")):
+    for (coeffs, num_sims, key, antithetic, _), name in zip(rec.path_sets,
+                                                            ("regression", "valuation")):
         for dtype in (torch.float32, torch.float64):
             tag = "" if dtype == torch.float32 else " f64"
             f64 = dtype == torch.float64
@@ -1940,7 +1921,7 @@ def phase_mesh(mesh, main, f64_main):
             max_err = max(max_err, _check_window(
                 f"K3 window{tag} F={F}", small, SMALL_PATH_SIMS, simulation.prng_key(SEED + F),
                 True, MESH_SMALL_WINDOW, dtype, every=16))
-    coeffs, num_sims, key, _ = recorded["sims"][0]
+    coeffs, num_sims, key, _, _ = rec.path_sets[0]
     k3 = dict(_time_window("K3 window", coeffs, num_sims, key, window, torch.float32),
               max_abs_err=max_err)
     k3_f64 = dict(_time_window("K3 window f64", coeffs, num_sims, key, window, torch.float64),
@@ -2303,59 +2284,6 @@ ACCURACY_GAP_MAX = 1e-3  # the study's own criterion, per seed
 ACCURACY_CAPTURE_LAUNCH = 29  # the backward launch recorded: mid-horizon of 58
 
 
-class _dtype_recording:
-    """While a run makes them, keep on the card (cloned), for each element
-    type of ``dtypes``, the operands of its ``backward_launch``-th K1 launch
-    ("K1") and of its first K2 launch ("K2"), and the parameters of its first
-    path set ("K3") (``wanted`` maps kernels to the launches to keep in place
-    of these); and count each kernel's launches by element type.  Path sets
-    are seen where ``draws_from`` (default ``storage_tpu_torch.valuation``)
-    calls ``simulate_factor_paths`` with keywords."""
-
-    def __init__(self, backward_launch=None, wanted=None, dtypes=("float32", "float64"),
-                 draws_from=None):
-        self.wanted = {"K1": backward_launch, "K2": 1, "K3": 1} if wanted is None else wanted
-        self.dtypes, self.draws_from = dtypes, draws_from
-        self.recorded, self.calls = {}, {}
-
-    def __enter__(self):
-        from storage_tpu_torch import valuation
-        from storage_tpu_torch.engines import lsmc
-
-        self.draws_from = self.draws_from or valuation
-        self.real = (lsmc.backward_update, lsmc.forward_sim,
-                     self.draws_from.simulate_factor_paths, lsmc._glue_graph)
-
-        def note(kernel, dtype, operands):
-            key = (kernel, str(dtype).split(".")[-1])
-            self.calls[key] = self.calls.get(key, 0) + 1
-            if self.calls[key] == self.wanted.get(kernel) and key[1] in self.dtypes:
-                self.recorded[key] = operands()
-
-        def recording(kernel, tensor_arg, real):
-            def call(*args, **kw):
-                note(kernel, args[tensor_arg].dtype,
-                     lambda: (tuple(a.clone() for a in args), kw))
-                return real(*args, **kw)
-            return call
-
-        def record_sim(coeffs, num_sims, **kw):
-            note("K3", kw["dtype"], lambda: (coeffs, num_sims, kw["key"], kw["antithetic"]))
-            return self.real[2](coeffs, num_sims, **kw)
-
-        lsmc.backward_update = recording("K1", 2, self.real[0])
-        lsmc.forward_sim = recording("K2", 0, self.real[1])
-        lsmc._glue_graph = _step_by_step
-        self.draws_from.simulate_factor_paths = record_sim
-        return self
-
-    def __exit__(self, *exc):
-        from storage_tpu_torch.engines import lsmc
-
-        (lsmc.backward_update, lsmc.forward_sim, self.draws_from.simulate_factor_paths,
-         lsmc._glue_graph) = self.real
-
-
 def _check_path_set(label, coeffs, num_sims, key, antithetic, dtype, plain_once=False):
     """K3 against its plain version on one path set, bit for bit, then both
     timed there beside the bound.  With ``plain_once`` the plain version runs
@@ -2404,7 +2332,7 @@ def phase_accuracy():
     study = _tool("torch_accuracy_study")
     tt.reset_launch_counts()
     t0 = time.perf_counter()
-    with _dtype_recording(ACCURACY_CAPTURE_LAUNCH) as rec:
+    with _recording(_first_launches(ACCURACY_CAPTURE_LAUNCH)) as rec:
         line = study.run_study(study.NUM_SIMS, study.SEEDS, "cuda")
     wall = time.perf_counter() - t0
     counts = tt.launch_counts()
@@ -2517,7 +2445,7 @@ def count_precision(num_sims, device="cuda"):
 
     @contextlib.contextmanager
     def counting(make_cfg):
-        with _dtype_recording(wanted={}, draws_from=simulation) as rec:
+        with _recording({}, draws_from=simulation) as rec:
             yield
         calls[make_cfg.__name__] = rec.calls
 
@@ -2535,13 +2463,14 @@ def record_precision(num_sims, device="cuda"):
 
     study = _tool("torch_precision_study")
     recorded, calls = {}, {}
-    for make_cfg, wanted in ((study.constant_rate_config, {"K1": PRECISION_CAPTURE_LAUNCH}),
-                             (study.bench_config, {"K2": 1, "K3": 1})):
+    for make_cfg, wanted in (
+            (study.constant_rate_config, {"K1": ("K1", "float64", PRECISION_CAPTURE_LAUNCH)}),
+            (study.bench_config, {"K2": ("K2", "float64", 1), "K3": ("K3", "float64", 1)})):
         cfg = make_cfg(num_sims)
         ctx, coeffs, spec = study.build(cfg)
-        with _dtype_recording(wanted=wanted, dtypes=("float64",), draws_from=simulation) as rec:
+        with _recording(wanted, draws_from=simulation) as rec:
             study.run_legs((cfg, ctx, coeffs, spec), study.draw(coeffs, num_sims, device), device)
-        recorded.update({kernel: ops for (kernel, _), ops in rec.recorded.items()})
+        recorded.update(rec.recorded)
         calls[make_cfg.__name__] = rec.calls
     return recorded, calls
 
@@ -2630,9 +2559,9 @@ NOTEBOOK_CAPTURE_LAUNCH = 170  # the K1 launch recorded: mid-horizon of the firs
 
 
 def _hold_recorded(label, rec, counts, min_tiles_per_block):
-    """The float32 launches that a phase's run kept (``_dtype_recording``)
-    held against their plain versions: K1, K2 (with per-sim panels where the
-    run wrote them), K3 bit for bit.  The run's launches, counted by element
+    """The float32 launches that a phase's run kept (a :class:`_recording`
+    of :func:`_first_launches`) held against their plain versions: K1, K2
+    (with per-sim panels where the run wrote them), K3 bit for bit.  The run's launches, counted by element
     type, must all be float32 and be the phase's.  Returns per kernel the
     variant ``label`` with its launches in the run (``launches_<label>``)."""
     import torch
@@ -2684,7 +2613,7 @@ def phase_gui():
     task.subscribe_status(statuses.append)
     tt.reset_launch_counts()
     t0 = time.perf_counter()
-    with _dtype_recording(GUI_CAPTURE_LAUNCH, dtypes=("float32",)) as rec:
+    with _recording(_first_launches(GUI_CAPTURE_LAUNCH, ("float32",))) as rec:
         res = task.start().result(timeout=900)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2791,7 +2720,7 @@ def phase_notebooks():
     folder = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
     tt.reset_launch_counts()
     npvs = {}
-    rec = _dtype_recording(NOTEBOOK_CAPTURE_LAUNCH, dtypes=("float32",))
+    rec = _recording(_first_launches(NOTEBOOK_CAPTURE_LAUNCH, ("float32",)))
     for name in NOTEBOOKS:
         t0 = time.perf_counter()
         with rec:

@@ -2,14 +2,18 @@
 
 Reference: ``LsmcStorageValuation.Calculate<T>``
 (``LsmcValuation/LsmcStorageValuation.cs:55-617``), via the JAX package's
-``engines/lsmc.py``.  This is its single-device, materialised route:
+``engines/lsmc.py``, on one device or a paths mesh, over path sets held
+whole or streamed:
 
 - **Backward induction** walks the periods in reverse carrying the value
   surface ``V [G, S]`` (sims contiguous).  Each period one launch of the
   ``backward_update`` CUDA kernel (:mod:`storage_tpu_torch.ops.backward`)
   updates ``V`` and emits the Gram/cross partials of the previous period's
   regression, which :func:`~storage_tpu_torch.ops.backward.assemble_regression`
-  solves between launches — the design matrix never materialises.
+  solves between launches — the design matrix never materialises.  One
+  scan (:class:`_BackwardScan`) runs that glue on fixed operands: replayed
+  as one CUDA graph where the sims lie on one card, run as it comes
+  elsewhere.
 - The **lower-bound estimator** is preserved: the argmax is taken over the
   *fitted* continuation but the realised value uses the *actual* simulated
   continuation of the chosen decision (reference :321-329).
@@ -60,8 +64,7 @@ from ..compile import ValuationContext
 from ..exceptions import StorageError
 from ..models.simulation import StreamingFactorSource
 from ..ops.backward import (
-    assemble_regression, backward_partials, backward_update, launch_backward_update,
-    reduce_partials,
+    assemble_regression, backward_partials, backward_update, reduce_partials,
 )
 from ..ops.forward import forward_sim, pack_scalars
 from ..ops.interp import fractional_index
@@ -244,27 +247,6 @@ def _solve_latest(v_parts, f_parts, sim_vols, sim_drift, spec: BasisSpec):
     return coeffs, mu, sd, vbar
 
 
-def _glue(graws, praws, musd, vbar, geom, num_sims: int, table_out=None, musd_out=None):
-    """Everything the scan does between two K1 launches.
-
-    The shards' partials of the last launch (standardized with ``musd`` and
-    centred on ``vbar``, its operands) are summed; the new surface's
-    sim-mean comes from praw's ones row (centred row sums); the decision
-    step's exact regression is assembled from the partials, re-centred on
-    that mean; and K1's next table and ``[mu; sd]`` are built from it.
-    ``geom`` is the step's ``(j, w, cost, price)``; ``table_out`` and
-    ``musd_out`` receive the table and ``[mu; sd]`` where given.  Returns
-    ``(table, vbar, musd, (coeffs, mu, sd, vbar))``: K1's next operands and
-    the step's row of the policy.
-    """
-    B = musd.shape[1]
-    graw, praw = sum_shards(graws), sum_shards(praws)
-    vbar_new = vbar + praw[B] / num_sims
-    coeffs, mu, sd = assemble_regression(graw, praw, musd, vbar_new - vbar, num_sims)
-    table = decision_table(coeffs, vbar_new, *geom, out=table_out)
-    return table, vbar_new, torch.stack([mu, sd], out=musd_out), (coeffs, mu, sd, vbar_new)
-
-
 def backward_scan(
     v_init,  # [G, S] value at the period after the last simulated step
     factors,  # [m, F, S] Markov factor states of the decision steps
@@ -275,8 +257,7 @@ def backward_scan(
     out=None,
 ):
     """Reverse scan over ``m`` periods with the structure of the JAX
-    package's ``backward_scan_pallas``, each step's glue (:func:`_glue`)
-    run as it comes.
+    package's ``backward_scan_pallas``: :class:`_BackwardScan` over one span.
 
     The latest period's regression is solved directly (it has no kernel
     partials yet); every kernel launch then updates ``V`` for its period and
@@ -289,69 +270,48 @@ def backward_scan(
     Returns ``(v_final [G, S] (per shard as v_init), coeffs [m, B, G],
     mus [m, B], sds [m, B], vbars [m, G])``.
     """
-    v_parts, f_parts = _as_shards(v_init), _as_shards(factors)
-    devices = [v.device for v in v_parts]
-    S = sum(v.shape[1] for v in v_parts)
-    m = f_parts[0].shape[0]
+    v_parts = _as_shards(v_init)
+    m = _as_shards(factors)[0].shape[0]
     out = out or _new_policy(v_parts[0], m, spec.num_basis)
-    coeffs, mu, sd, vbar = _solve_latest(v_parts, f_parts, sim_vols, sim_drift, spec)
-    for dst, x in zip(out, (coeffs, mu, sd, vbar)):
-        dst[m - 1] = x
-    table = decision_table(coeffs, vbar, *(g[m - 1] for g in geometry))
-    musd = torch.stack([mu, sd])
-    geom_j, geom_w = (replicate(devices, g) for g in geometry[:2])
-    scal = replicate(devices, _step_scalars(sim_vols, sim_drift))
-    v = v_parts
-    for k in range(m - 1, -1, -1):
-        if k < m - 1:
-            # The partials were standardized with musd (period k+1's) and
-            # centred on vbar; assemble period k's exact regression from them.
-            table, vbar, musd, row = _glue(graws, praws, musd, vbar,
-                                           [g[k] for g in geometry], S)
-            for dst, x in zip(out, row):
-                dst[k] = x
-        outs = [backward_update(f[k], f[max(k - 1, 0)], vs, t, vb, ms, gj[k], gw[k], sc[k],
-                                spec=spec)
-                for f, vs, t, vb, ms, gj, gw, sc in zip(
-                    f_parts, v, replicate(devices, table), replicate(devices, vbar),
-                    replicate(devices, musd), geom_j, geom_w, scal)]
-        v = [o[0] for o in outs]
-        graws, praws = [o[1] for o in outs], [o[2] for o in outs]
-    v = v if isinstance(v_init, (list, tuple)) else v[0]
-    return (v, *out)
+    scan = _BackwardScan(out, spec, sum(v.shape[1] for v in v_parts), m,
+                         [v.device for v in v_parts])
+    return (scan.scan(v_init, factors, sim_vols, sim_drift, geometry, 0, 0), *out)
 
 
 def _glue_graph(devices) -> bool:
     """Whether a scan over shards on ``devices`` replays its glue as a CUDA
-    graph (:class:`_GlueGraph`): when every shard lies on one CUDA device.
-    CPU tensors, and a paths mesh over several devices, take
-    :func:`backward_scan`."""
+    graph: when every shard lies on one CUDA device.  CPU tensors, and a
+    paths mesh over several devices, run it as it comes."""
     return devices[0].type == "cuda" and all(d == devices[0] for d in devices)
 
 
-class _GlueGraph:
-    """The backward scan of one call with its glue (:func:`_glue`) as one
-    CUDA graph, captured at the call's first glue step and replayed at every
-    later one, of every span, on the current stream; K1 stays an eager
-    launch between replays, one a step.  The same torch operations as
-    :func:`backward_scan`'s, in the same order, so the results are its bit
-    for bit.
+class _BackwardScan:
+    """The backward scan of one call.  K1 is one launch a decision step and
+    shard; the glue between two launches (:meth:`_step`) runs on fixed
+    operands, as one CUDA graph where every shard lies on one CUDA device
+    (:func:`_glue_graph`: captured at the call's first glue step and
+    replayed at every later one, of every span, on the current stream), and
+    as it comes elsewhere.  Either way the same torch operations in the same
+    order, so the results are the same bit for bit.
 
-    The graph's operands stay at fixed addresses for the call: K1's partials
-    (one buffer a shard, which K1 writes), K1's table, ``[mu; sd]`` and
-    sim-mean (which the graph reads and writes anew), the decision geometry
-    (the call's, or a streamed span's copied in once a span: ``rows`` steps)
-    and the call's policy tensors, which the graph fills a row a step.  The
+    The operands stay at fixed addresses for the call: K1's partials (one
+    buffer a shard, which K1 writes), K1's table, ``[mu; sd]`` and sim-mean
+    (which the step reads and writes anew), the decision geometry (the
+    call's, or a streamed span's copied in once a span: ``rows`` steps) and
+    the call's policy tensors, which the step fills a row a step.  The
     decision step is a device-side index ``(row of the geometry, step in the
-    call)``, set once a span and stepped down by each replay.  Made per call
-    and dropped with it: no allocation outlives the call.  (Torch keeps the
-    free blocks of a dropped graph's memory pool cached, 4 MiB a call, until
-    it empties its cache: at ``torch.cuda.empty_cache()``, or when an
-    allocation finds no free device memory.)
+    call)``, set once a span and stepped down by each step.  A shard on
+    another device than the first shard's reads copies of the table, sim-mean
+    and ``[mu; sd]``, refreshed after each step.  Made per call and dropped
+    with it: no allocation outlives the call.  (Torch keeps the free blocks
+    of a dropped graph's memory pool cached, 4 MiB a call, until it empties
+    its cache: at ``torch.cuda.empty_cache()``, or when an allocation finds
+    no free device memory.)
     """
 
-    def __init__(self, out, spec: BasisSpec, num_sims: int, rows: int):
+    def __init__(self, out, spec: BasisSpec, num_sims: int, rows: int, devices):
         self.out, self.spec, self.num_sims, self.rows = out, spec, num_sims, rows
+        self.graphed = _glue_graph(devices)
         self.geometry = None  # made at the first span, with the other operands
         self.graph = None
 
@@ -365,12 +325,24 @@ class _GlueGraph:
         self.index = torch.zeros(2, dtype=torch.int64, device=like.device)
         self.geometry = geometry if len(geometry[0]) == self.rows else tuple(
             g.new_empty((self.rows, *g.shape[1:])) for g in geometry)
+        # K1's table, vbar and [mu; sd] on each shard's device: the buffers
+        # themselves on the first shard's, copies elsewhere.
+        self.k1 = {d: tuple(x.to(d) for x in (self.table, self.vbar, self.musd))
+                   for d in dict.fromkeys(v.device for v in v_parts)}
+
+    def _refresh(self) -> None:
+        """K1's copies of the table, vbar and ``[mu; sd]`` brought up to date."""
+        for operands in self.k1.values():
+            for dst, x in zip(operands, (self.table, self.vbar, self.musd)):
+                if dst is not x:
+                    dst.copy_(x)
 
     def scan(self, v_init, factors, sim_vols, sim_drift, geometry, at: int, first: int):
-        """:func:`backward_scan` of the call's decision steps ``first ..
-        first+m-1``, whose geometry is rows ``at .. at+m-1`` of ``geometry``,
-        writing the call's policy rows; returns ``v_final``."""
+        """The scan of the call's decision steps ``first .. first+m-1``,
+        whose geometry is rows ``at .. at+m-1`` of ``geometry``, writing the
+        call's policy rows; returns ``v_final``."""
         v_parts, f_parts = _as_shards(v_init), _as_shards(factors)
+        devices = [v.device for v in v_parts]
         m = f_parts[0].shape[0]
         coeffs, mu, sd, vbar = _solve_latest(v_parts, f_parts, sim_vols, sim_drift, self.spec)
         for dst, x in zip(self.out, (coeffs, mu, sd, vbar)):
@@ -382,31 +354,50 @@ class _GlueGraph:
                 dst[:m] = g[at:at + m]
             at = 0
         del geometry  # a streamed span's own, once copied in: freed before the scan
-        geom_j, geom_w = self.geometry[:2]
         decision_table(coeffs, vbar, *(g[at + m - 1] for g in self.geometry), out=self.table)
         torch.stack([mu, sd], out=self.musd)
         self.vbar.copy_(vbar)
         self.index[0].fill_(at + m - 2)
         self.index[1].fill_(first + m - 2)
-        scal = _step_scalars(sim_vols, sim_drift)
+        self._refresh()
+        operands = [self.k1[d] for d in devices]
+        geom_j, geom_w, scal = (replicate(devices, x) for x in (
+            *self.geometry[:2], _step_scalars(sim_vols, sim_drift)))
         v = v_parts
         for k in range(m - 1, -1, -1):
             if k < m - 1:
-                self._replay()
-            v = [launch_backward_update(f[k], f[max(k - 1, 0)], vs, self.table, self.vbar,
-                                        self.musd, geom_j[at + k], geom_w[at + k], scal[k],
-                                        self.spec, partials=p)[0]
-                 for f, vs, p in zip(f_parts, v, self.partials)]
+                if self.graphed:
+                    self._replay()
+                else:
+                    self._step()
+                    self._refresh()
+            v = [backward_update(f[k], f[max(k - 1, 0)], vs, *ops, gj[at + k], gw[at + k], sc[k],
+                                 spec=self.spec, partials=p)[0]
+                 for f, vs, ops, gj, gw, sc, p in zip(f_parts, v, operands, geom_j, geom_w, scal,
+                                                      self.partials)]
         return v if isinstance(v_init, (list, tuple)) else v[0]
 
     def _step(self) -> None:
-        """One glue step on the fixed operands: what the graph records."""
-        G = self.vbar.shape[0]
+        """Everything the scan does between two K1 launches, on the fixed
+        operands.
+
+        The shards' partials of the last launch (standardized with ``[mu;
+        sd]`` and centred on ``vbar``, its operands) are summed; the new
+        surface's sim-mean comes from praw's ones row (centred row sums); the
+        decision step's exact regression is assembled from the partials,
+        re-centred on that mean; K1's next table and ``[mu; sd]`` are built
+        from it, and the step's row of the policy is written.
+        """
+        G, B = self.vbar.shape[0], self.musd.shape[1]
         sums = [reduce_partials(p, G) for p in self.partials]
+        graw, praw = sum_shards([s[0] for s in sums]), sum_shards([s[1] for s in sums])
+        vbar = self.vbar + praw[B] / self.num_sims
+        coeffs, mu, sd = assemble_regression(graw, praw, self.musd, vbar - self.vbar,
+                                             self.num_sims)
         geom = [g.index_select(0, self.index[:1])[0] for g in self.geometry]
-        _, vbar, _, row = _glue([s[0] for s in sums], [s[1] for s in sums], self.musd,
-                                self.vbar, geom, self.num_sims, self.table, self.musd)
-        for dst, x in zip(self.out, row):
+        decision_table(coeffs, vbar, *geom, out=self.table)
+        torch.stack([mu, sd], out=self.musd)
+        for dst, x in zip(self.out, (coeffs, mu, sd, vbar)):
             dst.index_copy_(0, self.index[1:], x[None])
         self.vbar.copy_(vbar)
         self.index.sub_(1)
@@ -517,10 +508,8 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
 
     The spans (:func:`_refine_spans`: ``num_chunks`` spans of a tensor, the
     source's own of a source) are walked in reverse, each a scan handed the
-    previous span's value surface and writing its rows of the policy:
-    :class:`_GlueGraph`'s when every shard lies on one CUDA device
-    (:func:`_glue_graph`), else :func:`backward_scan`.
-    ``after_span(progress)`` runs after each.
+    previous span's value surface and writing its rows of the policy, all by
+    one :class:`_BackwardScan`.  ``after_span(progress)`` runs after each.
     Returns ``(backward_npv, cont_mean0 [G], coeffs [m,B,G], mus, sds, vbars)``.
     ``cont_mean0`` is the current-period mean continuation when ``val_first``
     (reference :171-181), else zeros (unused).
@@ -559,22 +548,16 @@ def _backward_program(reg_factors, sim_vols, sim_drift, dev: LsmcDeviceInputs,
                 return geometry, a
             return _decision_geometry(dev, first + a, b - a, interp_kind, G, extra_decisions), 0
 
-        def scan_eagerly(v, factors, vols, drift, geometry, at, a):
-            rows = tuple(g[at:at + len(vols)] for g in geometry)
-            out = tuple(x[a:a + len(vols)] for x in policy)
-            return backward_scan(v, factors, vols, drift, rows, spec, out=out)[0]
-
-        graph = (_GlueGraph(policy, spec, reg.num_sims,
-                            m if whole else max(b - a for a, b in spans))
-                 if _glue_graph(reg.devices) else None)
-        scan = scan_eagerly if graph is None else graph.scan
+        scan = _BackwardScan(policy, spec, reg.num_sims,
+                             m if whole else max(b - a for a, b in spans), reg.devices)
         sw = active()
         sw.count("decision_steps", m)
         with sw.span("BackwardScan"):
             for i, (a, b) in enumerate(reversed(spans)):
                 # A streamed span's geometry is made in the call, so that the
                 # scan holds its only reference.
-                v = scan(v, reg.get(a, b), sim_vols[a:b], sim_drift[a:b], *span_geometry(a, b), a)
+                v = scan.scan(v, reg.get(a, b), sim_vols[a:b], sim_drift[a:b],
+                              *span_geometry(a, b), a)
                 if after_span is not None:
                     after_span(BACKWARD_PCNT_TIME * (i + 1) / len(spans))
         coeffs, mus, sds, vbars = policy

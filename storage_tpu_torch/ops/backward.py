@@ -91,13 +91,16 @@ def _persistent_grid(lib, device, S: int, D: int, B: int, dtype=torch.float32) -
 
 
 def backward_partials(v_next: torch.Tensor, D: int, B: int) -> torch.Tensor:
-    """A buffer for the kernel's partials at ``v_next``'s shapes: one
-    ``[B+1, G + B+1]`` partial per block of its persistent grid (praw's
-    columns, then graw's)."""
-    from .csrc import kernels
-
+    """A buffer for K1's partials at ``v_next``'s shapes: one ``[B+1, G +
+    B+1]`` partial (praw's columns, then graw's) per block of the kernel's
+    persistent grid on CUDA, one on the CPU."""
     G, S = v_next.shape
-    nblk = _persistent_grid(kernels(), v_next.device, S, D, B, v_next.dtype)
+    if v_next.device.type == "cpu":
+        nblk = 1
+    else:
+        from .csrc import kernels
+
+        nblk = _persistent_grid(kernels(), v_next.device, S, D, B, v_next.dtype)
     return torch.empty((nblk, B + 1, G + B + 1), dtype=v_next.dtype, device=v_next.device)
 
 
@@ -108,13 +111,12 @@ def reduce_partials(partials: torch.Tensor, G: int) -> Tuple[torch.Tensor, torch
     return sums[:, G:], sums[:, :G]
 
 
-def launch_backward_update(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
-                           scal, spec: BasisSpec, partials=None):
+def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
+                          scal, spec: BasisSpec, partials=None):
     """Launch ``backward_update_kernel`` (CUDA tensors only), its float32 or
     its float64 instantiation by the dtype of ``v_next``, writing its
     partials into ``partials`` (:func:`backward_partials`; a new buffer
-    when None).  Returns ``(v_out [G, S], partials)``, the partials
-    unreduced (:func:`reduce_partials`)."""
+    when None).  Returns ``(v_out [G, S], partials)``."""
     from .csrc import basis_arrays, check_dtype, check_launch, check_operand, kernels, on_device
 
     F, S = factors.shape
@@ -152,27 +154,25 @@ def launch_backward_update(factors, factors_prev, v_next, table, vbar, musd, geo
     return v_out, partials
 
 
-def _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w,
-                          scal, spec: BasisSpec):
-    """:func:`launch_backward_update` and :func:`reduce_partials`:
-    ``(v_out, graw, praw)``."""
-    v_out, partials = launch_backward_update(factors, factors_prev, v_next, table, vbar, musd,
-                                             geom_j, geom_w, scal, spec)
-    return (v_out, *reduce_partials(partials, v_next.shape[0]))
-
-
 def backward_update(factors, factors_prev, v_next, table, vbar, musd, geom_j, geom_w, scal,
-                    spec: BasisSpec):
-    """One backward period: ``(v_out [G, S], graw [B+1, B+1], praw [B+1, G])``.
+                    spec: BasisSpec, partials=None):
+    """One backward period: ``(v_out [G, S], partials)``, the Gram and cross
+    partials written unreduced (:func:`reduce_partials`) into ``partials``
+    (:func:`backward_partials`; a new buffer when None).
 
     CUDA tensors go to the kernel; CPU tensors to
-    :func:`backward_update_reference`.
+    :func:`backward_update_reference`, whose sums fill one block (so the
+    reduction gives them back exactly).
     """
-    if v_next.device.type == "cpu":
-        return backward_update_reference(factors, factors_prev, v_next, table, vbar, musd,
-                                         geom_j, geom_w, scal, spec)
-    return _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j,
-                                 geom_w, scal, spec)
+    if v_next.device.type != "cpu":
+        return _backward_update_cuda(factors, factors_prev, v_next, table, vbar, musd, geom_j,
+                                     geom_w, scal, spec, partials)
+    v_out, graw, praw = backward_update_reference(factors, factors_prev, v_next, table, vbar,
+                                                  musd, geom_j, geom_w, scal, spec)
+    if partials is None:
+        partials = backward_partials(v_next, table.shape[0], spec.num_basis)
+    partials[0].copy_(torch.cat([praw, graw], dim=1))
+    return v_out, partials
 
 
 def assemble_regression(graw, praw, musd_approx, delta, num_sims: int,

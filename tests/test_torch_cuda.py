@@ -86,12 +86,18 @@ def _backward_inputs(spec, S, G, D, seed, device, local=False):
             v_next.mean(dim=1), musd, j, w, scal)
 
 
+def _k1(args, spec):
+    """K1 on ``args``: ``(v_out, graw, praw)``, its partials reduced."""
+    v_out, partials = backward.backward_update(*args, spec=spec)
+    return (v_out, *backward.reduce_partials(partials, v_out.shape[0]))
+
+
 @pytest.mark.parametrize("spec,S,G,D", [(SPEC_3F, 1000, 17, 3), (SPEC_SMALL, 4097, 40, 5)],
                          ids=["B10-tail", "B3-D5"])
 def test_backward_update_matches_plain(cuda, spec, S, G, D):
     args = _backward_inputs(spec, S, G, D, seed=S, device=cuda)
     reset_launch_counts()
-    out = backward.backward_update(*args, spec=spec)
+    out = _k1(args, spec)
     assert launch_counts()["backward_update"] == 1
     _assert_backward_agrees(args, spec, out)
 
@@ -122,7 +128,7 @@ def _assert_backward_agrees(args, spec, out):
 def test_backward_update_shapes_match_plain(cuda, spec, S, G, D, local):
     args = _backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=local)
     reset_launch_counts()
-    out = backward.backward_update(*args, spec=spec)
+    out = _k1(args, spec)
     assert launch_counts()["backward_update"] == 1
     _assert_backward_agrees(args, spec, out)
 
@@ -134,8 +140,8 @@ def test_backward_update_is_deterministic(cuda, D, dtype):
     instantiation."""
     args = [a.to(dtype) if a.is_floating_point() else a
             for a in _backward_inputs(SPEC_3F, 300_004, 100, D, seed=7, device=cuda, local=True)]
-    first = backward.backward_update(*args, spec=SPEC_3F)
-    second = backward.backward_update(*args, spec=SPEC_3F)
+    first = _k1(args, SPEC_3F)
+    second = _k1(args, SPEC_3F)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -430,7 +436,7 @@ def test_backward_update_f64_matches_plain(cuda, spec, S, G, D, local):
     three, four and five quads."""
     args = _f64(_backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=local))
     reset_launch_counts()
-    v_k, graw_k, praw_k = backward.backward_update(*args, spec=spec)
+    v_k, graw_k, praw_k = _k1(args, spec)
     assert launch_counts()["backward_update"] == 1
     assert v_k.dtype == graw_k.dtype == praw_k.dtype == torch.float64
     v_r, graw_r, praw_r = backward.backward_update_reference(*args, spec=spec)
@@ -439,7 +445,7 @@ def test_backward_update_f64_matches_plain(cuda, spec, S, G, D, local):
     assert flipped.double().mean().item() <= 1e-6
     for a, b in ((graw_k, graw_r), (praw_k, praw_r)):
         assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-12
-    again = backward.backward_update(*args, spec=spec)
+    again = _k1(args, spec)
     for a, b in zip((v_k, graw_k, praw_k), again):
         assert torch.equal(a, b)
 

@@ -1,33 +1,38 @@
-"""The backward scan's glue between two K1 launches, run as it comes and
-replayed as one CUDA graph (``engines/lsmc.py``: ``_glue``,
-``backward_scan``, ``_GlueGraph``).
+"""The backward scan (``engines/lsmc.py``: ``_BackwardScan``, its glue
+step between two K1 launches run as it comes or replayed as one CUDA graph,
+and ``backward_scan`` over one span) and K1's one entry
+(``ops/backward.py::backward_update``).
 
 On the CPU, at 256 paths of the benchmark's daily case
-(``portbench/configs/daily_ratchet_3f.json``):
+(``portbench/configs/daily_ratchet_3f.json``), in float32 and float64:
 
 - ``backward_scan`` equals, bit for bit, a plain composition of
   ``backward_update_reference``, ``assemble_regression`` and
-  ``decision_table`` written here, in float32 and float64; the decision
-  geometry made for every step at once equals each span's made alone;
-- the graph's scan, with its replay run eagerly and K1 by its plain version
-  writing one block of partials, equals the eager scan bit for bit: one span,
-  20 progress spans, a streamed path set (whose tail span, walked first, is
-  the shortest, so the geometry is copied into rows made for the longest)
-  and two shards on one device; it replays once a glue step (decision steps
-  less the spans);
+  ``decision_table`` written here; the decision geometry made for every step
+  at once equals each span's made alone;
+- ``_backward_program`` equals a plain walk of that composition over the same
+  spans in reverse, bit for bit, both as the CPU runs it and with the graph's
+  route forced (its replay running the step eagerly): one span, 20 progress
+  spans, a streamed path set (whose tail span, walked first, is the
+  shortest, so the geometry is copied into rows made for the longest) and
+  two shards on one device; the forced route replays once a glue step
+  (decision steps less the spans);
+- K1's entry on CPU tensors writes its plain version's sums into one block of
+  partials, which the reduction gives back bit for bit;
 - the graph is chosen for shards that all lie on one CUDA device, never for
   CPU tensors or shards on two devices; a CPU valuation records neither of
   its counters.
 
 Marked ``cuda`` (they skip without a card; ``python -m pytest
 tests/test_torch_glue_graph.py -q -m cuda`` on one): the graph's valuation
-equals the eager one (the choice monkeypatched) by bytes, in float32 and
-float64, over one span, 20 progress spans and a streamed path set: the
-policy (``coeffs``, ``mus``, ``sds``, ``vbars``), NPV, deltas and trigger
-prices; K1 launches once a decision step; the graph is captured once a call
-and replayed at decision steps less spans; the scan makes no sync under
-``torch.cuda.set_sync_debug_mode("error")`` at 65,536 paths, and the
-valuation's ``max_memory_allocated`` is the eager one's within 64 KiB.
+equals, by bytes, the one whose glue step runs directly (the replay
+monkeypatched), in float32 and float64, over one span, 20 progress spans and
+a streamed path set: the policy (``coeffs``, ``mus``, ``sds``, ``vbars``),
+NPV, deltas and trigger prices; K1 launches once a decision step; the graph
+is captured once a call and replayed at decision steps less spans; the scan
+makes no sync under ``torch.cuda.set_sync_debug_mode("error")`` at 65,536
+paths, and the valuation's ``max_memory_allocated`` is the direct step's
+within 64 KiB.
 """
 import sys
 from pathlib import Path
@@ -44,10 +49,14 @@ import storage_tpu_torch as st  # noqa: E402
 from portbench import cases, driver  # noqa: E402
 from storage_tpu_torch.engines import lsmc  # noqa: E402
 from storage_tpu_torch.models.simulation import StreamingFactorSource  # noqa: E402
-from storage_tpu_torch.ops.backward import assemble_regression, backward_update_reference  # noqa: E402
-from storage_tpu_torch.ops.regression import (  # noqa: E402
-    design_matrix, fit_continuation, spot_from_factors, standardize_columns,
+from storage_tpu_torch.ops.backward import (  # noqa: E402
+    assemble_regression, backward_partials, backward_update, backward_update_reference,
+    reduce_partials,
 )
+from storage_tpu_torch.ops.regression import (  # noqa: E402
+    design_matrix, fit_continuation_shards, spot_from_factors, standardize_shards,
+)
+from storage_tpu_torch.parallel.mesh import sims_mean  # noqa: E402
 
 SIMS = 256
 SEED = 2003
@@ -91,13 +100,18 @@ def _equal(a, b):
 
 def _plain_scan(v, factors, vols, drift, geometry, spec):
     """The scan written out: the latest step solved directly, then K1's plain
-    version and the regression assembled from its partials, step by step."""
-    m, S, B = factors.shape[0], v.shape[1], spec.num_basis
+    version on each shard and the regression assembled from its partials,
+    summed in shard order, step by step.  ``v`` and ``factors`` are tensors
+    or lists of their shards."""
+    shards = isinstance(v, list)
+    v, factors = (v, factors) if shards else ([v], [factors])
+    m, S, B = factors[0].shape[0], sum(x.shape[1] for x in v), spec.num_basis
     gj, gw, cost, price = geometry
-    vbar = v.mean(dim=1)
-    X = design_matrix(spec, spot_from_factors(factors[-1], vols[-1], drift[-1]), factors[-1])
-    Xs, mu, sd = standardize_columns(X)
-    coeffs = fit_continuation(Xs, v.T - vbar[None, :])
+    vbar = sims_mean(v, 1)
+    Xs, mu, sd = standardize_shards([
+        design_matrix(spec, spot_from_factors(f[-1], vols[-1], drift[-1]), f[-1])
+        for f in factors])
+    coeffs = fit_continuation_shards(Xs, [x.T - vbar[None, :] for x in v])
     rows = {m - 1: (coeffs, mu, sd, vbar)}
     musd = torch.stack([mu, sd])
     table = lsmc.decision_table(coeffs, vbar, gj[m - 1], gw[m - 1], cost[m - 1], price[m - 1])
@@ -105,17 +119,38 @@ def _plain_scan(v, factors, vols, drift, geometry, spec):
         p = max(k - 1, 0)
         scal = torch.stack([torch.cat([drift[k:k + 1], vols[k]]),
                             torch.cat([drift[p:p + 1], vols[p]])])
-        v, graw, praw = backward_update_reference(factors[k], factors[p], v, table, vbar, musd,
-                                                  gj[k], gw[k], scal, spec)
+        outs = [backward_update_reference(f[k], f[p], x, table, vbar, musd, gj[k], gw[k], scal,
+                                          spec) for f, x in zip(factors, v)]
+        v = [o[0] for o in outs]
         if k == 0:
             break
+        graw, praw = (sum(parts[1:], parts[0]) for parts in
+                      ([o[1] for o in outs], [o[2] for o in outs]))
         vbar_new = vbar + praw[B] / S
         coeffs, mu, sd = assemble_regression(graw, praw, musd, vbar_new - vbar, S)
         rows[k - 1] = (coeffs, mu, sd, vbar_new)
         musd, vbar = torch.stack([mu, sd]), vbar_new
         table = lsmc.decision_table(coeffs, vbar, gj[k - 1], gw[k - 1], cost[k - 1],
                                     price[k - 1])
-    return (v, *(torch.stack([rows[k][i] for k in range(m)]) for i in range(4)))
+    return (v if shards else v[0], *(torch.stack([rows[k][i] for k in range(m)])
+                                      for i in range(4)))
+
+
+def _plain_program(case, factors, num_chunks):
+    """``_backward_program`` written out: ``_plain_scan`` over its spans in
+    reverse, each handed the previous span's value surface, then the
+    current period's step."""
+    assert case.statics["terminal_fn"] is None and case.first == 1
+    reg = lsmc._factor_access(factors)
+    G = case.p.ctx.num_grid_points
+    v = [torch.zeros((G, w), dtype=case.dtype) for w in reg.widths]
+    rows = []
+    for a, b in reversed(lsmc._refine_spans(case.m, num_chunks, reg.spans)):
+        v, *policy = _plain_scan(v, reg.get(a, b), case.vols[a:b], case.drift[a:b],
+                                 case.geometry(a, b), case.p.spec)
+        rows.insert(0, policy)
+    v0, cont_mean0 = lsmc._current_period_step(v, case.dev, case.p.ctx.interp_kind, G, 0)
+    return (sims_mean(v0), cont_mean0, *(torch.cat(x) for x in zip(*rows)))
 
 
 def test_scan_equals_plain_composition(case):
@@ -134,25 +169,38 @@ def test_the_calls_geometry_equals_each_spans(case):
         assert all(_equal(w[a:b], g) for w, g in zip(whole, case.geometry(a, b)))
 
 
-def _graph_on_cpu(monkeypatch):
-    """The graph's scan on the CPU: the replay runs its step eagerly, K1 is its
-    plain version writing one block of partials.  Returns the replays."""
-    replays = []
+def test_k1s_entry_writes_one_exact_block(case):
+    """``backward_update`` on CPU tensors fills one block of partials with
+    its plain version's sums; reduced, they are those sums bit for bit."""
+    k, G, spec = 170, case.p.ctx.num_grid_points, case.p.spec
+    gen = torch.Generator().manual_seed(SEED)
+    v = (torch.randn((G, SIMS), generator=gen, dtype=torch.float64) * 50.0).to(case.dtype)
+    coeffs = torch.randn((spec.num_basis, G), generator=gen, dtype=torch.float64).to(case.dtype)
+    geometry = [g[0] for g in case.geometry(k, k + 1)]
+    table = lsmc.decision_table(coeffs, v.mean(dim=1), *geometry)
+    Xs, mu, sd = standardize_shards([design_matrix(
+        spec, spot_from_factors(case.reg[k], case.vols[k], case.drift[k]), case.reg[k])])
+    args = (case.reg[k], case.reg[k - 1], v, table, v.mean(dim=1), torch.stack([mu, sd]),
+            *geometry[:2], lsmc._step_scalars(case.vols, case.drift)[k])
+    partials = backward_partials(v, table.shape[0], spec.num_basis)
+    v_out, got = backward_update(*args, spec=spec, partials=partials)
+    assert got is partials and tuple(got.shape) == (1, spec.num_basis + 1,
+                                                    G + spec.num_basis + 1)
+    want = backward_update_reference(*args, spec)
+    assert all(_equal(a, b) for a, b in zip((v_out, *reduce_partials(got, G)), want))
 
-    def launch(*args, partials):
-        v_out, graw, praw = backward_update_reference(*args)
-        partials.copy_(torch.cat([praw, graw], dim=1)[None])
-        return v_out, partials
+
+def _graph_on_cpu(monkeypatch):
+    """The graph's route on the CPU, its replay running the step eagerly.
+    Returns the replays."""
+    replays = []
 
     def replay(self):
         replays.append(1)
         self._step()
 
     monkeypatch.setattr(lsmc, "_glue_graph", lambda devices: True)
-    monkeypatch.setattr(lsmc, "launch_backward_update", launch)
-    monkeypatch.setattr(lsmc, "backward_partials",
-                        lambda v, D, B: v.new_empty((1, B + 1, v.shape[0] + B + 1)))
-    monkeypatch.setattr(lsmc._GlueGraph, "_replay", replay)
+    monkeypatch.setattr(lsmc._BackwardScan, "_replay", replay)
     return replays
 
 
@@ -168,7 +216,8 @@ def test_graph_scan_equals_eager_on_cpu(case, route, monkeypatch):
     factors = {"streamed": lambda: _streamed(case),
                "two_shards": lambda: [x.contiguous() for x in case.reg.chunk(2, dim=2)]}.get(
                    route, lambda: case.reg)
-    want = case.program(factors(), chunks)
+    want = _plain_program(case, factors(), chunks)
+    assert all(_equal(a, b) for a, b in zip(case.program(factors(), chunks), want))
     replays = _graph_on_cpu(monkeypatch)
     got = case.program(factors(), chunks)
     assert all(_equal(a, b) for a, b in zip(got, want))
@@ -242,6 +291,11 @@ def _bytes(x):
     return np.ascontiguousarray(np.asarray(x, dtype=np.float64)).tobytes()
 
 
+def _step_directly(monkeypatch):
+    """The glue step run directly on the card, in place of the graph's replay."""
+    monkeypatch.setattr(lsmc._BackwardScan, "_replay", lambda self: self._step())
+
+
 ROUTES = {"one_span": {}, "progress": {"on_progress_update": lambda f: None, "panels": True},
           "streamed": {}}
 
@@ -254,7 +308,7 @@ def test_graph_equals_eager_by_bytes(cuda, route, dtype, monkeypatch):
         monkeypatch.setenv("STORAGE_TPU_MAX_PATH_BYTES", "1000")
     kw = dict(device="cuda", num_sims=8192, dtype=DTYPES[dtype], **ROUTES[route])
     res, policy = _recorded(monkeypatch, lambda: _value(**kw))
-    monkeypatch.setattr(lsmc, "_glue_graph", lambda devices: False)
+    _step_directly(monkeypatch)
     ref, ref_policy = _recorded(monkeypatch, lambda: _value(**kw))
     for a, b in zip(policy, ref_policy):
         assert _bytes(a) == _bytes(b)
@@ -281,7 +335,7 @@ def test_k1_launches_and_graph_replays(cuda, route, spans):
 
 @pytest.mark.cuda
 def test_the_scan_makes_no_sync(cuda, monkeypatch):
-    real = lsmc._GlueGraph.scan
+    real = lsmc._BackwardScan.scan
     scans = []
 
     def scan(self, *a, **k):
@@ -294,7 +348,7 @@ def test_the_scan_makes_no_sync(cuda, monkeypatch):
 
     _value(device="cuda", num_sims=65536)  # warm
     torch.cuda.synchronize()
-    monkeypatch.setattr(lsmc._GlueGraph, "scan", scan)
+    monkeypatch.setattr(lsmc._BackwardScan, "scan", scan)
     _value(device="cuda", num_sims=65536)
     assert scans == [1]
 
@@ -310,6 +364,6 @@ def test_peak_memory_equals_the_eager_scan(cuda, monkeypatch):
         return torch.cuda.max_memory_allocated()
 
     graph = peak()
-    monkeypatch.setattr(lsmc, "_glue_graph", lambda devices: False)
+    _step_directly(monkeypatch)
     eager = peak()
     assert abs(graph - eager) <= 64 * 1024, (graph, eager)

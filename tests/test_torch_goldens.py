@@ -208,13 +208,14 @@ def test_study_helpers_equal_jax_float64(leg, jax_study, monkeypatch):
 
 
 def test_smoke_records_the_study_by_dtype():
-    """``chip_smoke._dtype_recording`` on the study at a cut size (512 paths,
-    one seed): each kernel's calls counted by element type (58 backward
-    steps, one forward pass and two path sets a valuation), and each type's
-    recorded operands of that type at the study's shapes."""
+    """``chip_smoke._recording`` of each dtype's first launches on the study
+    at a cut size (512 paths, one seed): each kernel's calls counted by
+    element type (58 backward steps, one forward pass and two path sets a
+    valuation), and each type's recorded operands of that type at the
+    study's shapes."""
     import chip_smoke
 
-    with chip_smoke._dtype_recording(29) as rec:
+    with chip_smoke._recording(chip_smoke._first_launches(29)) as rec:
         study.run_study(512, (11,), "cpu")
     for dtype in ("float32", "float64"):
         assert {k: c for (k, t), c in rec.calls.items() if t == dtype} == {

@@ -194,7 +194,8 @@ def test_smoke_records_the_gui_run():
     import chip_smoke
 
     task = gui.valuation_task(_inputs(gui, num_sims=256), device="cpu")
-    with chip_smoke._dtype_recording(chip_smoke.GUI_CAPTURE_LAUNCH, dtypes=("float32",)) as rec:
+    with chip_smoke._recording(
+            chip_smoke._first_launches(chip_smoke.GUI_CAPTURE_LAUNCH, ("float32",))) as rec:
         res = task.start().result(timeout=600)
     n_steps = len(res.expected_profile) - 1
     assert rec.calls == {("K1", "float32"): n_steps - 1, ("K2", "float32"): chip_smoke.NUM_SPANS,

@@ -150,7 +150,8 @@ def test_smoke_runner_runs_a_notebook():
 
 
 def test_smoke_records_the_first_valuation():
-    rec = chip_smoke._dtype_recording(chip_smoke.NOTEBOOK_CAPTURE_LAUNCH, dtypes=("float32",))
+    rec = chip_smoke._recording(
+        chip_smoke._first_launches(chip_smoke.NOTEBOOK_CAPTURE_LAUNCH, ("float32",)))
     with rec:
         namespace, _, _ = chip_smoke.run_notebook(
             str(EXAMPLES / "torch_storage_valuation_walkthrough.ipynb"), "cpu")

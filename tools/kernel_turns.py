@@ -234,14 +234,14 @@ def k3_turns(captured, parent=None):
     import torch
     from storage_tpu_torch.models import simulation
 
-    coeffs, num_sims, kw = captured["sim"][0]
+    coeffs, num_sims, key, _, _ = captured["sim"][0]
     versions = {"plain": simulation.simulate_factor_paths_reference,
                 "kernel": simulation._simulate_factor_paths_cuda}
     if parent is not None:
         versions["parent"] = parent_paths(parent)
 
     def call(name):
-        return versions[name](coeffs, num_sims, kw["key"], False, "cuda")
+        return versions[name](coeffs, num_sims, key, False, "cuda")
 
     out = dict()
     if parent is not None:
@@ -671,21 +671,28 @@ def main_f64(opts, result):
 
     fwd_spans = chip_smoke._stream_counts(341, chip_smoke.NUM_SIMS, 3,
                                           chip_smoke.DEFAULT_PATH_BUDGET, itemsize=8)[0]
-    with chip_smoke._recording(chip_smoke.CAPTURE_LAUNCH, fwd_spans["forward_sim"]) as recorded:
+    with chip_smoke._streamed_recording("float64", chip_smoke.CAPTURE_LAUNCH,
+                                        fwd_spans["forward_sim"]) as rec:
         t0 = time.perf_counter()
         first = value_f64()
         torch.cuda.synchronize()
     print(f"[f64 capture] recording run {time.perf_counter() - t0:.3f} s, NPV {first.npv:.6f}")
 
+    recorded = rec.recorded
+
     def on_card(name):
         args, kw = recorded.pop(name)
         return tuple(a.cuda() for a in args), kw
+
+    def k1(fn):  # K1 and the reduction of its partials
+        v_out, partials = fn(*k1_args, **k1_kw)
+        return (v_out, *backward.reduce_partials(partials, v_out.shape[0]))
 
     k1_args, k1_kw = on_card("K1")
     result["K1_f64"] = turns(
         "K1 f64 launch 170", {name: on_library(lib, backward._backward_update_cuda)
                               for name, lib in having("backward_update_f64_launch").items()},
-        "current", lambda fn: fn(*k1_args, **k1_kw), reps=20)
+        "current", k1, reps=20)
     del k1_args
     for label in ("K2 span", "K2 tail"):
         args, kw = on_card(label)
@@ -695,8 +702,8 @@ def main_f64(opts, result):
              for name, lib in having("forward_sim_f64_launch").items()},
             "current", lambda fn, args=args, kw=kw: fn(*args, **kw))
         del args
-    result["K3_f64"] = k3_f64_turns(recorded["sources"][0], having("path_sim_f64_launch"))
-    del recorded
+    result["K3_f64"] = k3_f64_turns(rec.path_sets[0], having("path_sim_f64_launch"))
+    del rec, recorded
     torch.cuda.empty_cache()
     if not opts.no_wall:
         result["wall_f64"] = wall_turns({name: libs[name] for name in ("parent", "current")
@@ -741,10 +748,11 @@ def main_flips(opts, result):
     fwd_spans = chip_smoke._stream_counts(n_sim_steps, chip_smoke.HOURLY_SIMS, 3,
                                           chip_smoke.HOURLY_BUDGET)[0]["forward_sim"]
     with chip_smoke._path_budget(chip_smoke.HOURLY_BUDGET):
-        with chip_smoke._recording(chip_smoke.HOURLY_CAPTURE_LAUNCH, fwd_spans) as recorded:
+        with chip_smoke._streamed_recording("float32", chip_smoke.HOURLY_CAPTURE_LAUNCH,
+                                            fwd_spans) as rec:
             chip_smoke.value_hourly(tt, chip_smoke.HOURLY_SIMS, 12, device="cuda")
     for label in ("K2 span", "K2 tail"):
-        args, kw = recorded.pop(label)
+        args, kw = rec.recorded.pop(label)
         count(f"hourly {label.split()[1]}", tuple(a.cuda() for a in args), kw)
     return 0
 
