@@ -104,7 +104,6 @@ struct Elem<float> {
   }
   static __device__ __forceinline__ float from_index(int j) { return __int_as_float(j); }
   static __device__ __forceinline__ unsigned to_index(float x) { return __float_as_uint(x); }
-  static __device__ __forceinline__ int int_at(const float* p) { return __float_as_int(*p); }
 };
 
 template <>
@@ -118,9 +117,6 @@ struct Elem<double> {
   static __device__ __forceinline__ unsigned to_index(double x) {
     return (unsigned)__double_as_longlong(x);
   }
-  static __device__ __forceinline__ int int_at(const double* p) {
-    return *reinterpret_cast<const int*>(p);
-  }
 };
 
 // The sum of v over each group of kLanes lanes (butterflies), in every lane.
@@ -133,27 +129,11 @@ __device__ __forceinline__ T lane_group_sum(T v) {
   return v;
 }
 
-// Asynchronous copies from global into shared memory (4, 8 or 16 bytes,
-// both addresses aligned to the size), grouped by commit and awaited
-// together. cp_async_elem copies one element of T.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
-}
-
+// Asynchronous copies of 16 bytes from global into shared memory (both
+// addresses 16-byte aligned), grouped by commit and awaited together.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_elem(float* dst, const float* src) { cp_async4(dst, src); }
-__device__ __forceinline__ void cp_async_elem(double* dst, const double* src) {
-  cp_async8(dst, src);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -164,6 +144,7 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 template <class R, class T>
 __device__ __forceinline__ T ipow(T x, int p) {
   T r = x;
+#pragma unroll 1
   for (int i = 1; i < p; ++i) r = R::mul(r, x);
   return r;
 }
@@ -179,21 +160,20 @@ __device__ __forceinline__ T spot_of(const T* coef, const T* x, int num_factors)
   return exp_of(log_spot);
 }
 
-// Raw (unstandardized) design-matrix columns for one sim.
+// Raw (unstandardized) design-matrix columns for one sim. The loops are
+// rolled: the code stays small, the products are the same.
 template <class R, class T>
 __device__ __forceinline__ void design_row(const BasisDesc& bd, T spot, const T* x, T* cols) {
+#pragma unroll 1
+  for (int b = 0; b < bd.num_basis; ++b) {
+    T col = T(1);
+    if (bd.spot_pow[b]) col = R::mul(col, ipow<R>(spot, bd.spot_pow[b]));
 #pragma unroll
-  for (int b = 0; b < kMaxBasis; ++b) {
-    if (b < bd.num_basis) {
-      T col = T(1);
-      if (bd.spot_pow[b]) col = R::mul(col, ipow<R>(spot, bd.spot_pow[b]));
-#pragma unroll
-      for (int f = 0; f < kMaxFactors; ++f) {
-        const int p = bd.fac_pow[b * kMaxFactors + f];
-        if (f < bd.num_factors && p) col = R::mul(col, ipow<R>(x[f], p));
-      }
-      cols[b] = col;
+    for (int f = 0; f < kMaxFactors; ++f) {
+      const int p = bd.fac_pow[b * kMaxFactors + f];
+      if (f < bd.num_factors && p) col = R::mul(col, ipow<R>(x[f], p));
     }
+    cols[b] = col;
   }
 }
 

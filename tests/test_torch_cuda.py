@@ -7,7 +7,9 @@ has no CPU mode).  Run them on a GPU machine with
 
 Random inputs at odd sizes exercise what the main path's shapes do not:
 ragged tail blocks, other basis and grid widths (the backward kernel up to
-G = 700 at D = 5, and bit-identical reruns), STEP ratchets,
+G = 700 at D = 5, in both precisions, sim counts that end a tile inside its
+ring of slots, a grid of one block, launches back to back, the widest
+decision counts, and bit-identical reruns), STEP ratchets,
 single-pillar (constant-rate) tables, and the forward kernel's options —
 per-sim panels, D = 7 decisions (``extra_decisions=2``) and POLY ratchets
 whose pillar tables are zero-padded to a common height, sim counts below
@@ -103,28 +105,38 @@ def test_backward_update_matches_plain(cuda, spec, S, G, D):
 
 
 def _assert_backward_agrees(args, spec, out):
+    """K1's outputs against its plain version's: float32 within 1e-5 of
+    max|V| outside near-tie flips (at most 1e-3 of V) and partials within
+    1e-4; float64 as ``test_backward_update_f64_matches_plain`` holds it."""
     v_k, graw_k, praw_k = out
     v_r, graw_r, praw_r = backward.backward_update_reference(*args, spec=spec)
     torch.cuda.synchronize()
-    flipped = (v_k - v_r).abs() > 1e-5 * v_r.abs().max()
-    assert flipped.float().mean().item() <= 1e-3
+    v_tol, flips, rtol = (1e-12, 1e-6, 1e-12) if v_k.dtype == torch.float64 else (1e-5, 1e-3, 1e-4)
+    flipped = (v_k - v_r).abs() > v_tol * v_r.abs().max()
+    assert flipped.double().mean().item() <= flips
     for a, b in ((graw_k, graw_r), (praw_k, praw_r)):
-        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+        assert ((a - b).abs().max() / b.abs().max()).item() <= rtol
 
 
 # Shapes the persistent-grid kernel must take: grids past the PR-1 kernel's
 # shared-memory limit (G = 663 at D = 3, 502 at D = 5, 403 at D = 7), fewer
 # sims than one 128-sim tile, fewer than one pass of the persistent grid,
 # several passes with a ragged tail, G not a multiple of the 16-point chunk,
-# an odd S, small and wide bases, and decisions that move inventory anywhere
-# on the grid (uniform j).
+# an odd S, small and wide bases, decisions that move inventory anywhere on
+# the grid (uniform j), and the widest decision counts: the one-phase
+# kernel's limits (D = 77 / 55 at B = 10 / 16, D = 2 extra_decisions + 3)
+# and past them, where a block of one decision warpgroup holds one ring slot
+# and one xr tile (B = 16 at D = 57).
 @pytest.mark.parametrize("spec,S,G,D,local", [
     (SPEC_3F, 2048, 700, 5, True), (SPEC_3F, 1500, 450, 7, True),
     (SPEC_3F, 100, 37, 3, True), (SPEC_3F, 20_000, 100, 3, True),
     (SPEC_3F, 300_004, 100, 3, True), (SPEC_SMALL, 4097, 45, 3, True),
     (SPEC_3F, 3000, 70, 3, False), (SPEC_16, 3000, 60, 3, True), (SPEC_13, 2000, 50, 5, True),
+    (SPEC_3F, 65_537, 700, 5, True), (SPEC_3F, 1000, 37, 77, True),
+    (SPEC_16, 1000, 37, 55, True), (SPEC_16, 1000, 37, 57, True),
 ], ids=["G700-D5", "G450-D7", "below-tile", "below-grid-pass", "multi-pass", "odd-S",
-        "wide-span", "B16", "B13-D5"])
+        "wide-span", "B16", "B13-D5", "G700-D5-ragged", "B10-D77", "B16-D55",
+        "B16-D57-one-slot"])
 def test_backward_update_shapes_match_plain(cuda, spec, S, G, D, local):
     args = _backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=local)
     reset_launch_counts()
@@ -144,6 +156,55 @@ def test_backward_update_is_deterministic(cuda, D, dtype):
     second = _k1(args, SPEC_3F)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# What the warp-specialised kernel's ring of vc slots adds: tile groups that
+# end inside the ring (1, 127, 129 and 2,000 sims: decision warpgroups with
+# part-filled or no tiles, a block with one item at G <= 16), G no multiple
+# of the 16-point chunk, every tile walked by one block (a grid of one block
+# forced through backward_update_launch), and the launch plans of wide
+# shapes: in float64 at B = 16 and D >= 5 a block holds fewer decision
+# warpgroups (two at D = 5, 7 and 13, one at D = 19).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("spec,S,G,D,blocks", [
+    (SPEC_3F, 1, 40, 3, None), (SPEC_3F, 127, 16, 3, None), (SPEC_3F, 127, 9, 5, None),
+    (SPEC_SMALL, 129, 33, 5, None), (SPEC_3F, 2000, 100, 3, None), (SPEC_13, 2000, 37, 3, None),
+    (SPEC_3F, 2000, 41, 3, 1), (SPEC_3F, 20_000, 100, 5, 1), (SPEC_16, 3001, 23, 3, 1),
+    (SPEC_16, 3001, 23, 5, None), (SPEC_16, 20_000, 37, 7, 1), (SPEC_16, 2000, 19, 13, None),
+    (SPEC_16, 1000, 17, 19, None),
+], ids=["S1", "S127-one-item", "S127-G9-D5", "S129-G33-D5", "S2000", "S2000-G37-B13",
+        "one-block", "one-block-many-tiles", "one-block-B16", "B16-D5", "one-block-B16-D7",
+        "B16-D13", "B16-D19"])
+def test_backward_update_ring_edges_match_plain(cuda, spec, S, G, D, blocks, dtype, monkeypatch):
+    args = [a.to(dtype) if a.is_floating_point() else a
+            for a in _backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=True)]
+    if blocks is not None:
+        key = (torch.cuda.current_device(), dtype, S, D, spec.num_basis)
+        monkeypatch.setitem(backward._GRIDS, key, blocks)
+    reset_launch_counts()
+    out = _k1(args, spec)
+    assert launch_counts()["backward_update"] == 1
+    if blocks is not None:
+        assert backward.backward_partials(args[2], D, spec.num_basis).shape[0] == blocks
+    _assert_backward_agrees(args, spec, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_backward_update_back_to_back(cuda, dtype):
+    """Launches queued back to back on one stream, with no wait between them
+    (each launch sets up its ring's barriers anew): each agrees with its
+    plain version, and a repeat of the first with the first, bit for bit."""
+    def inputs(S, G, D, seed):
+        return [a.to(dtype) if a.is_floating_point() else a
+                for a in _backward_inputs(SPEC_3F, S, G, D, seed=seed, device=cuda, local=True)]
+
+    first, second = inputs(20_000, 100, 3, 1), inputs(3001, 45, 5, 2)
+    outs = [_k1(first, SPEC_3F), _k1(second, SPEC_3F), _k1(first, SPEC_3F)]
+    torch.cuda.synchronize()
+    _assert_backward_agrees(first, SPEC_3F, outs[0])
+    _assert_backward_agrees(second, SPEC_3F, outs[1])
+    for a, b in zip(outs[0], outs[2]):
         assert torch.equal(a, b)
 
 
@@ -426,14 +487,22 @@ def _f64(args):
     (SPEC_3F, 1000, 17, 3, False), (SPEC_SMALL, 4097, 40, 5, False),
     (SPEC_3F, 2048, 700, 5, True), (SPEC_3F, 300_004, 100, 3, True), (SPEC_16, 3000, 60, 3, True),
     (SPEC_3F, 65_537, 700, 5, True), (SPEC_13, 2000, 50, 5, True),
-], ids=["B10-tail", "B3-D5", "G700-D5", "multi-pass", "B16", "G700-D5-ragged", "B13-D5"])
+    (SPEC_3F, 1500, 450, 7, True), (SPEC_3F, 100, 37, 3, True), (SPEC_3F, 20_000, 100, 3, True),
+    (SPEC_SMALL, 4097, 45, 3, True), (SPEC_3F, 3000, 70, 3, False),
+    (SPEC_3F, 1000, 37, 35, True), (SPEC_3F, 1000, 37, 37, True), (SPEC_16, 1000, 37, 25, True),
+], ids=["B10-tail", "B3-D5", "G700-D5", "multi-pass", "B16", "G700-D5-ragged", "B13-D5",
+        "G450-D7", "below-tile", "below-grid-pass", "odd-S", "wide-span", "B10-D35",
+        "B10-D37-one-slot", "B16-D25-one-slot"])
 def test_backward_update_f64_matches_plain(cuda, spec, S, G, D, local):
     """K1's float64 instantiation: V entries within 1e-12 of max|V| but for
     near-tie flips of the fitted totals (an FMA chain against torch's matrix
     product), at most 1e-6 of them; partials within 1e-12. Shapes as the
     float32 kernel's: G = 700 at D = 5 (its shared memory does not grow with
     G) at a sim count that is no multiple of the 128-sim tile, fitted rows of
-    three, four and five quads."""
+    three, four and five quads, and the widest decision counts: the
+    one-phase kernel's limits (D = 35 / 25 at B = 10 / 16) and past them,
+    where a block of one decision warpgroup holds one ring slot (D = 37 at
+    B = 10, and D = 25 at B = 16)."""
     args = _f64(_backward_inputs(spec, S, G, D, seed=S + G, device=cuda, local=local))
     reset_launch_counts()
     v_k, graw_k, praw_k = _k1(args, spec)

@@ -28,14 +28,20 @@ reciprocal that torch computes (``GSTEP_REPAIR``), except under ``--flips``,
 which counts the flips of both. ``--variant NAME=DIR`` (repeatable) builds
 an edited copy of the current ``backward_update.cu`` / ``forward_sim.cu``
 (under ``--f64`` also ``path_sim.cu``) and ``storage_kernels.cuh`` from DIR
-(one constant changed, such as K2's ``kR``, K1's resident blocks or K3's
-``K3F64`` sizes, or one part taken out) and times it beside the others.
+(one constant changed, such as K2's ``kR``, K1's roles, registers or
+ring depth, or K3's ``K3F64`` sizes, or one part taken out) and times it
+beside the others.
 
 Default (float32):
 1. build   — the current library, the parent and the variants, together.
 2. capture — ``chip_smoke.phase_capture``: one 1M-path valuation of the
-   headline case recording the forward launch and the path-set simulations.
-3. K2      — at D = 3, with per-sim panels and at D = 5: every version in
+   headline case recording K1's launch 170, the forward launch and the
+   path-set simulations.
+3. K1      — on launch 170 (``k1_turns``): every version in turn, then in
+   reverse order, 20 launches each; V_out against the current kernel's
+   byte for byte, the partials' largest gap over their column's largest
+   value.
+   K2      — at D = 3, with per-sim panels and at D = 5: every version in
    turn, then in reverse order; 5 launches each, CUDA events, wrappers
    included; outputs against the current kernel's.
 4. K3      — at ``[341, 3, 1M]``: the plain version, the kernel and the parent
@@ -59,9 +65,10 @@ Default (float32):
 ``--f64``: f64_main's configuration (the headline case in float64 at 1M
 paths and the default path budget, streamed) run once recording its K1
 launch 170, the forward launch of its middle 64-step span and of its 20-step
-tail and its streaming sources; K1 on launch 170 and K2 on both launches
-timed in turns (parent, current, variants, then in reverse order; 20 and 5
-launches each) with their outputs against the current kernel's; K3's
+tail and its streaming sources; K1 on launch 170 (``k1_turns``) and K2 on
+both launches timed in turns (parent, current, variants, then in reverse
+order; 20 and 5 launches each) with their outputs against the current
+kernel's; K3's
 float64 mode (``path_sim_f64_launch`` of the parent's ``path_sim.cu`` and of
 variants holding one) on the regression source in its three modes (one
 launch at ``[341, 3, 1M]``, the checkpoint pass, a 64-step span), in turns,
@@ -187,28 +194,74 @@ def on_library(lib, fn):
     return run
 
 
-def turns(label, versions, reference, call, reps=REPS):
-    """Each version timed in turn, then in reverse order; the first two
-    outputs against ``reference``'s."""
+def rel_errors(out, ref):
+    """The first two outputs' relative errors against the reference's, and
+    their description."""
+    errs = [chip_smoke.rel_err(a, b) for a, b in zip(out[:2], ref[:2])]
+    return errs, "first outputs rel " + ", ".join(f"{e:.2e}" for e in errs)
+
+
+def turns(label, versions, reference, call, reps=REPS, agree=rel_errors):
+    """Each version timed in turn, then in reverse order; its outputs against
+    ``reference``'s by ``agree(out, ref)``, which returns what is recorded
+    and its description (by default ``rel_errors``)."""
     import torch
 
     ref = call(versions[reference])
     torch.cuda.synchronize()
-    agreement = {}
+    agreement, described = {}, {}
     for name, fn in versions.items():
         out = call(fn)
         torch.cuda.synchronize()
-        agreement[name] = [chip_smoke.rel_err(a, b) for a, b in zip(out[:2], ref[:2])]
+        agreement[name], described[name] = agree(out, ref)
         del out
+    del ref
     order = list(versions) + list(reversed(versions))
     times = {name: [] for name in versions}
     for name in order:
         times[name].append(chip_smoke.cuda_ms(lambda: call(versions[name]), reps))
     for name in versions:
         print(f"[turns {label}] {name}: {' / '.join(f'{t:.4f}' for t in times[name])} ms "
-              f"(mean {sum(times[name]) / 2:.4f}); first outputs rel against {reference}: "
-              + ", ".join(f"{e:.2e}" for e in agreement[name]))
+              f"(mean {sum(times[name]) / 2:.4f}); against {reference}: {described[name]}")
     return dict(order=order, ms=times, agreement=agreement)
+
+
+def column_gap(a, b):
+    """The largest gap of ``a`` from ``b`` over the largest |b| of its column."""
+    import torch
+
+    scale = b.abs().amax(dim=0).clamp_min(torch.finfo(b.dtype).tiny)
+    return float(((a - b).abs().amax(dim=0) / scale).max())
+
+
+def k1_agreement(out, ref):
+    """K1's ``(v_out, graw, praw, blocks)`` against the reference's: V_out
+    byte for byte, the partials' largest gap over their column's largest
+    value (``column_gap``), and the blocks it ran."""
+    import torch
+
+    ints = torch.int64 if out[0].dtype == torch.float64 else torch.int32
+    bits, ref_bits = out[0].view(ints), ref[0].view(ints)
+    a = dict(blocks=out[3], v_out_bytes_equal=torch.equal(bits, ref_bits),
+             v_out_differ=int((bits != ref_bits).sum()),
+             graw_gap=column_gap(out[1], ref[1]), praw_gap=column_gap(out[2], ref[2]))
+    return a, (f"V_out {'equal byte for byte' if a['v_out_bytes_equal'] else 'differs'} "
+               f"({a['v_out_differ']} entries), graw gap {a['graw_gap']:.2e}, praw gap "
+               f"{a['praw_gap']:.2e}, {a['blocks']} blocks")
+
+
+def k1_turns(label, libs, args, kw, reps=20):
+    """K1 on one recorded launch with each library of ``libs`` (name ->
+    library, None for the package's) in ``turns``, against the current
+    kernel by ``k1_agreement``."""
+    from storage_tpu_torch.ops import backward
+
+    def call(lib):
+        with library(lib):
+            v_out, partials = backward._backward_update_cuda(*args, **kw)
+        return (v_out, *backward.reduce_partials(partials, v_out.shape[0]), partials.shape[0])
+
+    return turns(label, libs, "current", call, reps, agree=k1_agreement)
 
 
 def parent_paths(lib):
@@ -555,13 +608,15 @@ def main_f32(opts, result):
 
     parent_dir = repaired_forward(opts.parent) if (opts.parent / "forward_sim.cu").exists() \
         else opts.parent
-    parent, variants = build_all(opts, (parent_dir, ("forward_sim.cu",), "parent_forward"),
-                                 ("forward_sim.cu",))
+    parent, variants = build_all(
+        opts, (parent_dir, ("backward_update.cu", "forward_sim.cu"), "parent_f32"),
+        ("backward_update.cu", "forward_sim.cu"))
     parent_k3 = build_library(opts.parent, ("path_sim.cu",), "parent_path_sim")
     libs = ({"parent": parent} if parent else {}) | {"current": None} | variants
     versions = {name: on_library(lib, forward._forward_sim_cuda) for name, lib in libs.items()}
 
     captured = chip_smoke.phase_capture()
+    result["K1"] = k1_turns(f"K1 launch {chip_smoke.CAPTURE_LAUNCH}", libs, *captured["bwd"])
     args, kw = captured["fwd"]
     n, _, S = args[0].shape
     full_panels = torch.empty((n, 6, S), device="cuda")
@@ -659,7 +714,7 @@ def k3_f64_turns(source, versions, reps=5):
 def main_f64(opts, result):
     import torch
     import storage_tpu_torch as tt
-    from storage_tpu_torch.ops import backward, forward
+    from storage_tpu_torch.ops import forward
 
     parent, variants = build_all(
         opts, (opts.parent, f64_sources(opts.parent), "parent_f64"),
@@ -684,16 +739,8 @@ def main_f64(opts, result):
         args, kw = recorded.pop(name)
         return tuple(a.cuda() for a in args), kw
 
-    def k1(fn):  # K1 and the reduction of its partials
-        v_out, partials = fn(*k1_args, **k1_kw)
-        return (v_out, *backward.reduce_partials(partials, v_out.shape[0]))
-
-    k1_args, k1_kw = on_card("K1")
-    result["K1_f64"] = turns(
-        "K1 f64 launch 170", {name: on_library(lib, backward._backward_update_cuda)
-                              for name, lib in having("backward_update_f64_launch").items()},
-        "current", k1, reps=20)
-    del k1_args
+    result["K1_f64"] = k1_turns(f"K1 f64 launch {chip_smoke.CAPTURE_LAUNCH}",
+                                having("backward_update_f64_launch"), *on_card("K1"))
     for label in ("K2 span", "K2 tail"):
         args, kw = on_card(label)
         result[label.replace(" ", "_") + "_f64"] = turns(
