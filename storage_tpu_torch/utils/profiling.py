@@ -67,12 +67,16 @@ class Stopwatches:
     the device work it queued, not just the launches.
     """
 
-    PHASES = (
+    #: The path simulations, the backward induction and the forward pass:
+    #: what a valuation's host time outside them (``host_other_s``) leaves
+    #: out of "All".
+    CORE_PHASES = (
         "RegressionPriceSimulation",
         "ValuationPriceSimulation",
         "BackwardInduction",
         "ForwardSimulation",
     )
+    PHASES = CORE_PHASES + ("Assembly",)
 
     def __init__(self, device=None, record: bool = False) -> None:
         self._elapsed: Dict[str, float] = {}

@@ -49,7 +49,7 @@ from .storage import CmdtyStorage
 from .types import TriggerPricePoint, TriggerPriceProfile
 from .utils.basis import THREE_FACTOR_SEASONAL_ALIASES, BasisFunctionsType, as_monomials
 from .utils.frequencies import PeriodLike, normalize_freq, to_period
-from .utils.profiling import Stopwatches, host_wait, upload
+from .utils.profiling import Stopwatches, active, host_wait, upload
 
 logger: logging.Logger = logging.getLogger("storage_tpu_torch.multi_factor")
 
@@ -359,7 +359,7 @@ def _multi_factor_calc(
         )
         logger.info("Calculation of LSMC value complete.")
 
-        with stopwatches.span("Assembly"):
+        with stopwatches.time("Assembly"):
             results, backward_npv = _assemble_results(
                 ctx, arrays, intrinsic, sim_periods, sims_cache.get("reg"),
                 sims_cache.get("val"))
@@ -392,19 +392,32 @@ def _fetch_panel(panel, max_chunk_bytes: int = 256 * 2**20) -> np.ndarray:
     float64 host array, in blocks of rows of at most ``max_chunk_bytes``:
     each block is widened to float64 on the device and lands in its final
     place with one copy, so the host makes no second pass over the data (at
-    1M paths a panel is 1.4 GB on the device and 2.7 GB on the host)."""
-    shards = [panel] if isinstance(panel, torch.Tensor) else list(panel)
-    rows = shards[0].shape[0]
-    S = sum(p.shape[1] for p in shards)
-    out = np.empty((rows, S), dtype=np.float64)
-    host = torch.from_numpy(out)
-    step = max(1, max_chunk_bytes // max(S * out.itemsize, 1))
-    col = 0
-    for p in shards:
-        dst = host[:, col:col + p.shape[1]]
-        for a in range(0, rows, step):
-            host_wait(dst[a:a + step].copy_, p[a:a + step].to(torch.float64))
-        col += p.shape[1]
+    1M paths a panel is 1.4 GB on the device and 2.7 GB on the host).
+
+    In a recorded call it is a ``PanelFetch`` span and counts one
+    ``panel_frames``, a ``panel_blocks`` for each block copied (each one
+    ``host_wait``), the bytes the blocks carry to the host
+    (``panel_d2h_bytes``) and the bytes of the host array
+    (``panel_host_bytes``)."""
+    sw = active()
+    with sw.span("PanelFetch"):
+        shards = [panel] if isinstance(panel, torch.Tensor) else list(panel)
+        rows = shards[0].shape[0]
+        S = sum(p.shape[1] for p in shards)
+        out = np.empty((rows, S), dtype=np.float64)
+        host = torch.from_numpy(out)
+        step = max(1, max_chunk_bytes // max(S * out.itemsize, 1))
+        col = 0
+        for p in shards:
+            dst = host[:, col:col + p.shape[1]]
+            for a in range(0, rows, step):
+                block = p[a:a + step]
+                host_wait(dst[a:a + step].copy_, block.to(torch.float64))
+                sw.count("panel_blocks")
+                sw.count("panel_d2h_bytes", block.numel() * out.itemsize)
+            col += p.shape[1]
+    sw.count("panel_frames")
+    sw.count("panel_host_bytes", out.nbytes)
     return out
 
 

@@ -25,8 +25,9 @@ the CPU, where each launch of the path kernel is a call of its plain version.
   A read that the one-slot span cache serves is not counted.
 - ``tools/trace_spans.py`` reads the stream counters and spans, the
   cell's ``k3_launches.f64`` reader the path kernel's launches, and
-  ``tools/f64_control.py`` draws the float32 control's normals finite.
+  ``tools/lower_control.py`` draws the float32 control's normals finite.
 """
+import json
 import os
 import sys
 from pathlib import Path
@@ -40,7 +41,7 @@ for path in (ROOT, ROOT / "tools"):
     if str(path) not in sys.path:
         sys.path.insert(0, str(path))
 
-import f64_control  # noqa: E402
+import lower_control  # noqa: E402
 import trace_spans  # noqa: E402
 from portbench import cases, check, compare, driver, trace, yardstick  # noqa: E402
 from portbench.reference import threefry  # noqa: E402
@@ -317,14 +318,27 @@ def test_control_normals_kept_inside(monkeypatch):
     key = threefry.fold_in(threefry.prng_key(SEED), 0)
     for draws in ("float32", "float64"):
         want = threefry.normals(key, (16, 3, 64), "cpu", torch.float64, draws)
-        got = f64_control.normals_kept_inside(key, (16, 3, 64), "cpu", torch.float64, draws)
+        got = lower_control.normals_kept_inside(key, (16, 3, 64), "cpu", torch.float64, draws)
         assert torch.equal(got, want)
     edge = torch.tensor([-1.0 + 2.0**-30, -0.5, 0.0, 0.5, 1.0 - 2.0**-30], dtype=torch.float64)
     monkeypatch.setattr(threefry, "uniform_pm1_64", lambda key, shape, device: edge)
     plain = threefry.normals(key, (5,), "cpu", torch.float32, "float64")
-    kept = f64_control.normals_kept_inside(key, (5,), "cpu", torch.float32, "float64")
+    kept = lower_control.normals_kept_inside(key, (5,), "cpu", torch.float32, "float64")
     assert torch.isinf(plain[[0, 4]]).all() and torch.isfinite(kept).all()
     assert torch.equal(kept[1:4], plain[1:4]) and kept[4] == -kept[0] > 5.0
-    with f64_control.kept_inside():
-        assert threefry.normals is f64_control.normals_kept_inside
-    assert threefry.normals is not f64_control.normals_kept_inside
+    with lower_control.kept_inside():
+        assert threefry.normals is lower_control.normals_kept_inside
+    assert threefry.normals is not lower_control.normals_kept_inside
+
+
+def test_lower_control_reads_the_cells_own_control():
+    """Without a dtype the control is the one the cell's file names (float32
+    without TF32), drawn with its uniforms kept inside (-1, 1); at 64 paths
+    it fails every limit of the cell but the exact ``trigger_rows``, and the
+    reference draws its own normals again afterwards."""
+    (rec,) = lower_control.readings("daily_value_1m_f64", [SEED], device="cpu", num_sims=64)
+    assert rec["kind"] == "control " + json.dumps(CELL["control"]) and rec["seed"] == SEED
+    for name, limit in CELL["limits"].items():
+        if name != "trigger_rows":
+            assert rec[name] > limit, (name, rec[name], limit)
+    assert threefry.normals is not lower_control.normals_kept_inside

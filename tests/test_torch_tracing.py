@@ -179,9 +179,13 @@ def test_fit_and_reprice_record_each_span_once(policy_sws):
 def test_panels_and_progress_counts(panels_sw):
     """At 2,000 paths with panels and progress: the panel fetches are waits,
     and on a card each ``Progress`` span waits on one event besides (none
-    here: the CPU has no events to wait on)."""
+    here: the CPU has no events to wait on).  Each of the eight frames is
+    one block at 2,000 paths, and carries its float64 bytes to the host."""
+    panel_bytes = (2 * (DECISION_STEPS + 1) + 6 * (DECISION_STEPS + 2)) * PANELS_SIMS * 8
     assert panels_sw.counters == {"host_syncs": PANELS_SYNCS, "uploads": PANELS_UPLOADS,
-                                  "decision_steps": DECISION_STEPS}
+                                  "decision_steps": DECISION_STEPS, "panel_frames": 8,
+                                  "panel_blocks": 8, "panel_d2h_bytes": panel_bytes,
+                                  "panel_host_bytes": panel_bytes}
     assert sum(s.name == "Progress" for s in panels_sw.spans) == PROGRESS_SPANS
 
 

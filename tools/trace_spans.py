@@ -16,7 +16,9 @@ without one) and keeps each call's spans and counters
   scan's glue is a CUDA graph, ``glue_graph_captures`` and
   ``glue_graph_replays``; where path sets stream, ``stream_checkpoints`` and
   ``streamed_spans``, beside the path kernel's launches a call counted on
-  the device, ``k3_launches``);
+  the device, ``k3_launches``; where per-sim panels are fetched, the
+  ``PanelFetch`` spans and ``panel_frames``, ``panel_blocks``,
+  ``panel_d2h_bytes`` and ``panel_host_bytes``);
 - the device's idle time under each innermost span (a ``Wait`` or ``Sync``
   named with its parent; time outside every call: ``outside the program``),
   which adds up to the traced window's idle time;
@@ -49,6 +51,7 @@ from storage_tpu_torch.utils.profiling import Stopwatches, self_times_ns  # noqa
 
 OUTSIDE = "outside the program"
 FRONT_END = ("Compile", "Intrinsic", "DeviceInputs", "Assembly")
+PANEL_COUNTERS = ("panel_frames", "panel_blocks", "panel_d2h_bytes", "panel_host_bytes")
 
 Event = Tuple[float, float, str]  # device activity: (start us, end us, name)
 
@@ -184,6 +187,8 @@ def readings(entry: str, calls, counters, events, t0: int, t1: int) -> Dict[str,
         out.update(stream_checkpoints=per_call("stream_checkpoints"),
                    streamed_spans=per_call("streamed_spans"),
                    stream_checkpoints_s=t("StreamCheckpoints"), stream_span_s=t("StreamSpan"))
+    if any("panel_frames" in c for c in counters):  # per-sim panels fetched
+        out.update({k: per_call(k) for k in PANEL_COUNTERS}, panel_fetch_s=t("PanelFetch"))
     if any("glue_graph_replays" in c for c in counters):  # the glue as a CUDA graph
         out.update(glue_graph_captures=per_call("glue_graph_captures"),
                    glue_graph_replays=per_call("glue_graph_replays"))
@@ -196,7 +201,7 @@ def readings(entry: str, calls, counters, events, t0: int, t1: int) -> Dict[str,
                    assembly_s=t("Assembly"),
                    front_end_idle_s=idle_under(calls, events, t0, t1, FRONT_END) / n,
                    progress_wait_s=t("Progress/Wait"),
-                   host_other_s=t("All") - sum(t(p) for p in Stopwatches.PHASES))
+                   host_other_s=t("All") - sum(t(p) for p in Stopwatches.CORE_PHASES))
         out["front_end_s"] = sum(t(x) for x in FRONT_END)
     else:
         out.update(triggers_s=t("StackedOutputs", "self_s"),
@@ -290,6 +295,10 @@ def main(argv=None) -> int:
               f"K1 device {got['k1_step_device_us']:.3f} us; glue graph captures "
               f"{got.get('glue_graph_captures', 0)}, replays {got.get('glue_graph_replays', 0)} "
               "a call")
+    if "panel_frames" in got:
+        print(f"  panels: {got['panel_frames']} frames, {got['panel_blocks']} blocks, "
+              f"{got['panel_d2h_bytes']} bytes to the host, {got['panel_host_bytes']} bytes "
+              f"of host arrays, PanelFetch {got['panel_fetch_s']:.6f} s a call")
     print("  readings " + json.dumps(res["readings"]))
     return 0
 
